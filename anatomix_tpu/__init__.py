@@ -1,4 +1,4 @@
-"""anatomix-tpu: a TPU-native (JAX/XLA/Pallas/pjit) rebuild of anatomix.
+"""anatomix-tpu: a JAX/XLA rebuild of anatomix, run on NVIDIA GPUs.
 
 General-purpose 3D biomedical feature extraction (6M `anatomix` UNet, 94M
 `anatomix-dev` UNet, 26M `anatomix-dev-vit` 3D ViT), jit-compiled

@@ -1,4 +1,4 @@
-"""The anatomix UNet, rebuilt TPU-first in functional JAX.
+"""The anatomix UNet in functional JAX.
 
 Design
 ------
@@ -12,8 +12,8 @@ Here the architecture is a static *layer plan* — a tuple of layer specs
 computed once from the config with the exact same index scheme — and a pure
 `unet_apply(plan, params, x)` function that iterates it at trace time. Under
 `jax.jit` the whole network compiles to one XLA program (fused conv+norm+act,
-no Python dispatch at runtime), data is channel-last (NDHWC) for MXU-friendly
-3D convs, and batch-norm state is handled functionally.
+no Python dispatch at runtime), data is channel-last (NDHWC) for the
+GPU's 3D conv kernels, and batch-norm state is handled functionally.
 
 Constructor surface matches `Unet(dimension, input_nc, output_nc, num_downs,
 ngf, norm, final_act, activation, pad_type, doubleconv,
@@ -212,7 +212,7 @@ def init_params(
     use_bias = cfg.norm == "instance"
     params: dict[str, Any] = {}
     # 1D/2D models run as degenerate 3D: leading singleton kernel axes
-    # (see `unet_apply`), so every TPU conv path applies unchanged.
+    # (see `unet_apply`), so the 3D conv path applies unchanged.
     kshape = (1,) * (3 - cfg.dimension) + (3,) * cfg.dimension
     taps = 3 ** cfg.dimension
     if cfg.activation == "prelu":
@@ -269,24 +269,6 @@ def param_count(params) -> int:
 # -----------------------------------------------------------------------------
 # Forward
 
-def _train_conv_eligible(cin: int, cout: int, spatial) -> bool:
-    """Per-conv policy for `conv_impl='pallas_train'` (the differentiable
-    sparse block kernel, `ops/pallas/conv_block_train.py`): even spatial,
-    lane-group channel counts, packed weights and the wgrad kernel's f32
-    accumulators must fit scoped VMEM."""
-    even = all(s % 2 == 0 for s in spatial)
-    sparse_w = 64 * cin * 8 * cout * 2
-    wgrad_acc = 64 * cin * 8 * cout * 4
-    return (
-        even
-        # manual Mosaic DMA needs the block lane dim (8*cin) 128-aligned
-        and cin % 16 == 0
-        and cin >= 16
-        and sparse_w <= 13 * 2 ** 20
-        and wgrad_acc <= 20 * 2 ** 20
-    )
-
-
 def unet_apply(
     plan: UnetPlan,
     params: dict[str, Any],
@@ -297,7 +279,6 @@ def unet_apply(
     train: bool = False,
     compute_dtype=None,
     bn_axis_name: str | None = None,
-    conv_impl: str = "xla",
     spatial_axis_name: str | None = None,
     eval_norm_layers: Sequence[int] = (),
     in_tile_counts: tuple[int, int, int] | None = None,
@@ -315,10 +296,6 @@ def unet_apply(
     `train=True` makes batch norm use current-batch statistics and also
     returns `new_stats`, a dict of `{layer_idx: (mean, var)}` running-stat
     updates (momentum 0.1, torch-style unbiased update).
-
-    `conv_impl='pallas'` routes eligible convs through the fused Pallas
-    TPU kernel (inference paths with constant weights only; per-layer
-    policy in `ops/pallas/conv3x3.choose_impl`).
     """
     cfg = plan.config
     if cfg.activation == "prelu":
@@ -359,73 +336,7 @@ def unet_apply(
     for idx, spec in enumerate(plan.layers):
         p = params.get(str(idx))
         if spec.kind == "conv":
-            use_pallas = False
-            if conv_impl == "pallas":
-                from anatomix_tpu.ops.pallas.conv3x3 import choose_impl
-
-                use_pallas = (
-                    choose_impl(spec.in_ch, spec.out_ch, feat.shape[1:4])
-                    != "xla"
-                )
-            if conv_impl == "pallas_train" and _train_conv_eligible(
-                spec.in_ch, spec.out_ch, feat.shape[1:4]
-            ):
-                from anatomix_tpu.ops.pallas.conv_block_train import (
-                    conv3x3_same_train,
-                )
-
-                cd = compute_dtype or jnp.bfloat16
-                feat = conv3x3_same_train(
-                    feat.astype(cd),
-                    p["w"],
-                    p.get("b", jnp.zeros((spec.out_ch,), jnp.float32)),
-                    pad_type=cfg.pad_type,
-                    compute_dtype=cd,
-                    interpret=jax.default_backend() == "cpu",
-                )
-            elif (
-                conv_impl == "pallas_train"
-                and spec.in_ch < 16
-                and all(s % 2 == 0 for s in feat.shape[1:4])
-            ):
-                # tiny-Ci convs (the entry conv): the XLA full-res lowering
-                # is a pathological lane-1 loop fusion (23 ms of the traced
-                # pretrain step); run the dense block-space conv instead
-                from anatomix_tpu.ops.pallas.conv_block_train import (
-                    conv3x3_block_train,
-                )
-
-                cd = compute_dtype or jnp.bfloat16
-                feat = conv3x3_block_train(
-                    feat,
-                    p["w"],
-                    p.get("b"),
-                    pad_type=cfg.pad_type,
-                    compute_dtype=cd,
-                    interpret=jax.default_backend() == "cpu",
-                )
-            elif use_pallas:
-                from anatomix_tpu.ops.pallas.conv3x3 import (
-                    conv3x3_packed,
-                    conv3x3_same,
-                )
-
-                if "pallas" in p:  # prepacked (see extract.prepack_pallas)
-                    feat = conv3x3_packed(
-                        feat,
-                        p["pallas"],
-                        pad_type=cfg.pad_type,
-                        compute_dtype=compute_dtype or jnp.bfloat16,
-                    )
-                else:  # eager path: weights must be concrete
-                    feat = conv3x3_same(
-                        feat,
-                        p["w"],
-                        p.get("b"),
-                        pad_type=cfg.pad_type,
-                        compute_dtype=compute_dtype or jnp.bfloat16,
-                    )
-            elif spatial_axis_name is not None:
+            if spatial_axis_name is not None:
                 # sharded D axis: halo-exchange pad, local H/W pad, VALID
                 from anatomix_tpu.parallel.spatial import halo_pad_d
 

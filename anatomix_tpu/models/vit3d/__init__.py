@@ -12,7 +12,6 @@ from anatomix_tpu.models.vit3d.primus import (
     build_out_norm,
     init_primus_params,
     load_primus_v2,
-    prepack_primus_tokenizer,
     primus_apply,
     primus_param_count,
 )
@@ -23,7 +22,6 @@ __all__ = [
     "build_out_norm",
     "init_primus_params",
     "load_primus_v2",
-    "prepack_primus_tokenizer",
     "primus_apply",
     "primus_param_count",
 ]

@@ -24,13 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Any, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from anatomix_tpu.backend import attention_implementation
 from anatomix_tpu.ops.conv import conv3d
 from anatomix_tpu.ops.norms import (
     channel_demean,
@@ -319,74 +319,37 @@ def _rope_half_perm(hd: int) -> np.ndarray:
     return perm
 
 
-def _flash_attention(q, k, v, scale: float):
-    """(B, H, N, hd) x3 -> (B, H, N, hd) via the stock TPU flash kernel."""
-    from jax.experimental.pallas.ops.tpu.flash_attention import (
-        BlockSizes,
-        SegmentIds,
-        flash_attention,
-    )
+def dot_product_attention(q, k, v, *, scale: float, implementation: str):
+    """Multi-head attention on (B, N, H, hd) q/k/v, no mask.
 
-    B, H, N, hd = q.shape
-    # Default 1408 from the wave-25/26 HW sweep (tools/_exp_flashblk.py):
-    # at the production shape (N=4104 -> Np=4224) per-attn is 0.170 ms vs
-    # 0.426 at 384 — bigger blocks win at this tiny N until the kernel
-    # vmem-OOMs (4224 single-block needs a 22.8M scoped stack > 16M).
-    # End-to-end: ViT sliding 256³ 9.43 s -> 7.64 s (wave-26 C1).
-    # Override via env for sweeps. TRACE-TIME ONLY: the value is baked
-    # into the jit cache — two runs in one process with different env
-    # values keep the first trace.
-    import os
-
-    _raw = os.environ.get("ANATOMIX_FLASH_BLK", "1408")
-    try:
-        parts = [int(p) for p in _raw.split(",")]
-        if len(parts) == 1:
-            # single-value form: kv blocks are lane-tiled (multiple of
-            # 128), so round blk_k up rather than rejecting legacy
-            # values like '64' (ADVICE r4 #2)
-            blk_q = parts[0]
-            blk_k = max(128, -(-parts[0] // 128) * 128)
-        elif len(parts) == 2:
-            blk_q, blk_k = parts  # rectangular: 'block_q,block_k'
-        else:
-            raise ValueError(_raw)
-    except ValueError as e:
-        raise ValueError(
-            f"ANATOMIX_FLASH_BLK={_raw!r}: need 'blk' or 'blk_q,blk_k' "
-            "integers"
-        ) from e
-    if not (8 <= blk_q <= 8192) or blk_q % 8 or not (
-            128 <= blk_k <= 8192) or blk_k % 128:
-        raise ValueError(
-            f"ANATOMIX_FLASH_BLK={_raw!r} out of range: block_q must be a "
-            "multiple of 8 in [8, 8192] and block_k a multiple of 128 in "
-            "[128, 8192] (kv blocks are lane-tiled)"
+    `implementation`: 'einsum' is the plain reference (f32 logits and
+    softmax, (B, H, N, N) materialized); 'xla' and 'cudnn' go through
+    `jax.nn.dot_product_attention`. For those the head dim is zero-padded
+    to a multiple of 8, which cuDNN's fused kernel requires; zero channels
+    add nothing to q·k, their outputs are sliced off, and the scale is
+    passed explicitly so it stays 1/sqrt(true head dim)."""
+    if implementation == "einsum":
+        logits = jnp.einsum(
+            "bnhd,bmhd->bhnm", q, k, preferred_element_type=jnp.float32
+        ) * scale
+        attn = jax.nn.softmax(logits, axis=-1)
+        return jnp.einsum(
+            "bhnm,bmhd->bnhd", attn.astype(v.dtype), v,
+            preferred_element_type=jnp.float32,
         )
-    # the padded sequence must tile by BOTH block sizes
-    Np = -(-N // blk_q) * blk_q
-    while Np % blk_k:
-        Np += blk_q
-    hdp = max(128, -(-hd // 128) * 128)
-    pad = ((0, 0), (0, 0), (0, Np - N), (0, hdp - hd))
-    qf, kf, vf = (jnp.pad(t, pad) for t in (q, k, v))
-    seg = jnp.broadcast_to(
-        (jnp.arange(Np) < N).astype(jnp.int32)[None], (B, Np)
+    hd = q.shape[-1]
+    pad = (-hd) % 8
+    if pad:
+        widths = ((0, 0), (0, 0), (0, 0), (0, pad))
+        q, k, v = (jnp.pad(t, widths) for t in (q, k, v))
+    out = jax.nn.dot_product_attention(
+        q, k, v, scale=scale, implementation=implementation
     )
-    sizes = BlockSizes(
-        block_q=blk_q, block_k_major=blk_k, block_k=blk_k, block_b=1,
-        block_q_major_dkv=blk_q, block_k_major_dkv=blk_k, block_k_dkv=blk_k,
-        block_q_dkv=blk_q, block_k_major_dq=blk_k, block_k_dq=blk_k,
-        block_q_dq=blk_q,
-    )
-    out = flash_attention(
-        qf, kf, vf, segment_ids=SegmentIds(seg, seg), sm_scale=scale,
-        block_sizes=sizes,
-    )
-    return out[:, :, :N, :hd]
+    return out[..., :hd]
 
 
-def _attention(cfg, block, x, rope, n_prefix, compute_dtype=None):
+def _attention(cfg, block, x, rope, n_prefix, compute_dtype=None,
+               attn_impl=None):
     B, N, D = x.shape
     H = cfg.eva_numheads
     hd = cfg.head_dim
@@ -395,8 +358,7 @@ def _attention(cfg, block, x, rope, n_prefix, compute_dtype=None):
     # rotate-half RoPE: apply a fixed per-head channel permutation to the
     # q/k PROJECTION WEIGHTS (attention scores are invariant to a shared
     # q/k channel permutation) so the rotation pairs are contiguous
-    # half-slices instead of stride-2 interleaved lanes — kills 4
-    # deinterleave+interleave relayouts per block.
+    # half-slices instead of stride-2 interleaved channels.
     rope_half = cfg.use_rot_pos_emb and hd % 2 == 0
     if rope_half:
         perm = _rope_half_perm(hd)
@@ -421,40 +383,22 @@ def _attention(cfg, block, x, rope, n_prefix, compute_dtype=None):
             q = _layer_norm(q, block["q_norm"], eps=1e-5)
             k = _layer_norm(k, block["k_norm"], eps=1e-5)
     v = _apply_linear(block["v_proj"], x).reshape(B, N, H, hd)
-    q = q.transpose(0, 2, 1, 3)  # (B, H, N, hd)
-    k = k.transpose(0, 2, 1, 3)
-    v = v.transpose(0, 2, 1, 3)
 
     if cfg.use_rot_pos_emb:
         cos, sin = rope
+        cos, sin = cos[:, None, :], sin[:, None, :]  # broadcast over heads
         apply = _apply_rope_half if rope_half else _apply_rope
-        q_spatial = apply(q[:, :, n_prefix:], cos, sin)
-        k_spatial = apply(k[:, :, n_prefix:], cos, sin)
-        q = jnp.concatenate([q[:, :, :n_prefix], q_spatial], axis=2)
-        k = jnp.concatenate([k[:, :, :n_prefix], k_spatial], axis=2)
+        q_spatial = apply(q[:, n_prefix:], cos, sin)
+        k_spatial = apply(k[:, n_prefix:], cos, sin)
+        q = jnp.concatenate([q[:, :n_prefix], q_spatial], axis=1)
+        k = jnp.concatenate([k[:, :n_prefix], k_spatial], axis=1)
 
-    scale = 1.0 / math.sqrt(hd)
-    if jax.default_backend() != "cpu" and N >= 1024:
-        # Pallas flash attention: the XLA path materializes the full
-        # (H, N, N) f32 attention matrix per block (404 MB at 128³ input —
-        # ~1.9 ms/block of pure HBM traffic); flash keeps it in VMEM
-        # tiles. Sequence padded to a block multiple with segment-id
-        # masking, head dim zero-padded to the 128-lane tile (zero dims
-        # add nothing to q·k and produce discarded zero outputs).
-        out = _flash_attention(
-            q.astype(dt), k.astype(dt), v.astype(dt), scale
-        )
-    else:
-        logits = jnp.einsum(
-            "bhnd,bhmd->bhnm", q.astype(dt), k.astype(dt),
-            preferred_element_type=jnp.float32,
-        ) * scale
-        attn = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
-        out = jnp.einsum(
-            "bhnm,bhmd->bhnd", attn.astype(dt), v.astype(dt),
-            preferred_element_type=jnp.float32,
-        )
-    out = out.transpose(0, 2, 1, 3).reshape(B, N, D).astype(x.dtype)
+    out = dot_product_attention(
+        q.astype(dt), k.astype(dt), v.astype(dt),
+        scale=1.0 / math.sqrt(hd),
+        implementation=attn_impl or attention_implementation(dt),
+    )
+    out = out.reshape(B, N, D).astype(x.dtype)
     if cfg.scale_attn_inner:
         out = _layer_norm(out, block["attn_inner_norm"], eps=1e-6)
     return _apply_linear(block["proj"], out)
@@ -499,415 +443,25 @@ def _tokenizer_v2(cfg, tok, x, compute_dtype=None):
     return y  # (B, d, h, w, embed)
 
 
-def _stage_sparse_ok(stage):
-    """The sparse GEMM weight format is 64x the dense taps: deep wide
-    stages (256ch) blow scoped VMEM — those stay XLA (cheap anyway:
-    small spatial dims)."""
-    ci = stage["down"]["w"].shape[-1]
-    return ci % 16 == 0 and 64 * ci * 8 * ci * 2 <= 18 * 2 ** 20
+def _depth_to_space2(y, co):
+    """(B, d, h, w, 8·co) with (kd, kh, kw, co)-major channels ->
+    (B, 2d, 2h, 2w, co)."""
+    B, d, h, w, _ = y.shape
+    y = y.reshape(B, d, h, w, 2, 2, 2, co)
+    y = y.transpose(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(B, 2 * d, 2 * h, 2 * w, co)
 
 
-def prepack_primus_tokenizer(cfg, params, compute_dtype=jnp.bfloat16):
-    """One-time packing of the fused tokenizer's residual-stage conv
-    weights into the sparse block-GEMM layout. Without this the pack
-    gathers re-run in-graph on every forward (and on every sliding-window
-    chunk step). Returns a params pytree with extra ('w0','w1','w2','b8')
-    leaves on the sparse-eligible stage convs; `_tokenizer_v2_fused` uses
-    them when present and their dtype matches."""
-    from anatomix_tpu.ops.pallas.conv3x3 import prepack_conv
-    from anatomix_tpu.ops.pallas.conv_block_train import (
-        pack_sparse_weights_jnp,
-    )
-
-    tok = params.get("tokenizer")
-    if not isinstance(tok, dict) or "stages" not in tok:
-        return params
-
-    # stem: pack the dense block-space form for the Pallas VALID kernel
-    # (inference only — the XLA dense_block_conv_train stays for the
-    # differentiable path, which never sees prepacked leaves). The XLA
-    # block conv is lane-poor (Ci_block=8) and ran 1.9 ms + 0.4 ms of
-    # relayout at 128³ in the wave-27 trace vs ~0.4 ms MXU-rate here.
-    stem = dict(tok["stem"])
-    stem["pallas"] = prepack_conv(
-        np.asarray(stem["w"], np.float32),
-        None if stem.get("b") is None else np.asarray(
-            stem["b"], np.float32
-        ),
-        s2d="on", act="none", compute_dtype=compute_dtype,
-        interpret=jax.default_backend() == "cpu",
-    )
-    tok = {**tok, "stem": stem}
-
-    from anatomix_tpu.ops.pallas.conv_block import (
-        wide_weights_from_groups_jnp,
-    )
-
-    @jax.jit
-    def _pack(w):
-        return pack_sparse_weights_jnp(jnp.asarray(w).astype(compute_dtype))
-
-    stages = []
-    for stage in tok["stages"]:
-        if not stage["blocks"] or not _stage_sparse_ok(stage):
-            stages.append(stage)
-            continue
-        blocks = []
-        for blk in stage["blocks"]:
-            nb = dict(blk)
-            for key in ("conv1", "conv2"):
-                p = dict(nb[key])
-                w0, w1, w2 = _pack(p["w"])
-                co = p["w"].shape[-1]
-                b = p.get("b")
-                b = np.zeros((co,), np.float32) if b is None else b
-                p["w0"], p["w1"], p["w2"] = w0, w1, w2
-                # wide-assembly regroup for the valid kernel (round 5)
-                for name, g in zip(
-                    ("g1", "g2", "g3", "g4", "g5"),
-                    wide_weights_from_groups_jnp(
-                        w0, w1, w2, p["w"].shape[3]
-                    ),
-                ):
-                    p[name] = g
-                p["b8"] = jnp.tile(
-                    jnp.asarray(b).astype(jnp.float32), 8
-                )[None]
-                nb[key] = p
-            blocks.append(nb)
-        stages.append({**stage, "blocks": blocks})
-    return {**params, "tokenizer": {**tok, "stages": stages}}
-
-
-def _tokenizer_v2_fused(cfg, tok, x, compute_dtype=None):
-    """Block-space tokenizer: residual-stage convs run as sparse Pallas
-    block GEMMs with instance norms (+ residual + LeakyReLU) fused into
-    block-layout elementwise passes — one s2d/d2s pair per stage replaces
-    the XLA conv/norm relayout traffic (trace r3: the XLA tokenizer cost
-    6.3 ms of convs + 8.5 ms of norm-glue copies out of the 34.4 ms ViT
-    forward). Exact same math as `_tokenizer_v2` (bf16-level differences
-    only); stride-2 downsample convs run block->dense in a dedicated
-    Pallas kernel (ops/pallas/conv_down.py) so no full-res depth_to_space
-    ever materializes."""
-    from anatomix_tpu.models.unet_fused import _instance_norm_any
-    from anatomix_tpu.ops.pallas.conv_block import conv_block_sparse
-    from anatomix_tpu.ops.pallas.conv_block_train import (
-        pack_sparse_weights_jnp,
-    )
-    from anatomix_tpu.ops.pallas.conv_down import conv_down2_block
-    from anatomix_tpu.ops.pallas.reshuffle import (
-        depth_to_space,
-        space_to_depth,
-    )
-
-    interpret = jax.default_backend() == "cpu"
-    # no compute_dtype = full-precision semantics: the kernels request
-    # HIGHEST-precision f32 dots (production passes bf16 explicitly)
-    cd = compute_dtype or jnp.float32
-
-    def lrelu(v):
-        return jax.nn.leaky_relu(v, negative_slope=0.01)
-
-    def conv(p, v, stride=1):
-        return conv3d(
-            v, p["w"], p.get("b"), stride=stride, padding="SAME"
-            if stride == 1 else [(1, 1)] * 3,
-            compute_dtype=compute_dtype,
-        )
-
-    def pack(p):
-        if "w0" in p and p["w0"].dtype == cd:
-            # prepacked once by `prepack_primus_tokenizer`
-            out = {
-                "w0": p["w0"], "w1": p["w1"], "w2": p["w2"],
-                "b8": p["b8"], "act": "none",
-                "ci": p["w"].shape[3], "co": p["w"].shape[4],
-            }
-            for name in ("g1", "g2", "g3", "g4", "g5"):
-                if name in p:
-                    out[name] = p[name]
-            return out
-        w = p["w"].astype(cd)
-        co = w.shape[-1]
-        w0, w1, w2 = pack_sparse_weights_jnp(w)
-        b = p.get("b")
-        b = jnp.zeros((co,), jnp.float32) if b is None else b
-        return {
-            "w0": w0, "w1": w1, "w2": w2,
-            "b8": jnp.tile(b.astype(jnp.float32), 8)[None],
-            "act": "none", "ci": w.shape[3], "co": co,
-        }
-
-    def norm_act(v):
-        return lrelu(instance_norm(v, eps=cfg.in_eps))
-
-    from anatomix_tpu.ops.pallas.conv_block_train import (
-        dense_block_conv_train,
-    )
-
-    # stem: the XLA full-res Ci=1 conv is a pathological lane-1 loop
-    # fusion that also swallows the following IN's statistics (16.8 ms of
-    # the 49 ms round-3 trace) — run it as a dense block-space conv (MXU
-    # rate) with the IN+LeakyReLU riding a block-layout elementwise pass.
-    # A 4-D (B, D, H, W) input (the sliding path's packed window form) or
-    # a (…, 1) volume both route through the packed channel-less s2d —
-    # the (…, W, 1) tensor is 128x lane-padded under T(8,128) so slicing
-    # or reading it costs ~1 GB at 128³ (conv3x3.space_to_depth_4d).
-    from anatomix_tpu.ops.pallas.conv3x3 import space_to_depth_4d
-    from anatomix_tpu.ops.pallas.reshuffle import space_to_depth_c1
-
-    _use_c1 = (
-        jax.default_backend() not in ("cpu",) or interpret
-    ) and os.environ.get("ANATOMIX_S2D_C1", "0") == "1"
-    # default OFF: the s2d_c1 kernel's (…,2w)->(…,w,2) minor-split
-    # reshape is an unsupported Mosaic shape cast on real HW (wave-28
-    # probe, tools/logs/w28_d2sprobe.log) — interpret mode accepts it.
-    # The XLA space_to_depth_4d entry (~1.2 ms at 128³) is the fallback.
-
-    def _s2d_c1(x4):
-        # Pallas channel-less entry unless gated off (the XLA form
-        # materializes a 64x-lane-padded (…, 2) intermediate — ~1.2 ms
-        # per 128³ entry, wave-27 trace)
-        if _use_c1:
-            return space_to_depth_c1(x4.astype(cd), interpret=interpret)
-        return space_to_depth_4d(x4.astype(cd))
-
-    if x.ndim == 4:
-        xb = _s2d_c1(x)
-    elif x.shape[-1] == 1:
-        xb = _s2d_c1(x[..., 0])
-    else:
-        xb = space_to_depth(x.astype(cd), interpret=interpret)
-    stem_pallas = tok["stem"].get("pallas")
-    if (
-        stem_pallas is not None
-        and stem_pallas["w_packed"].dtype == cd
-        and os.environ.get("ANATOMIX_VIT_STEM_PALLAS", "1") == "1"
-    ):
-        # inference: prepacked Pallas dense block conv (MXU-rate); the
-        # XLA block conv below is lane-poor at Ci_block=8 (~2.3 ms of
-        # the 25 ms wave-27 ViT forward incl. relayouts)
-        from anatomix_tpu.models.unet_fused import _conv_block_dense
-
-        yb = _conv_block_dense(xb, stem_pallas, "zeros", cd, interpret)
-    else:
-        yb = dense_block_conv_train(
-            xb, tok["stem"]["w"].astype(cd),
-            tok["stem"].get("b"), act="none", pad_type="zeros",
-            compute_dtype=cd,
-        )
-    yb = _instance_norm_any(yb, True, eps=cfg.in_eps, act_fn=lrelu, act_name="lrelu")
-    y = None  # (block yb) xor (dense y): materialize one representation
-
-    def to_dense(y, yb):
-        if y is None:
-            y = depth_to_space(yb, interpret=interpret)
-            if compute_dtype is None:
-                y = y.astype(x.dtype)  # block path may run a narrower
-                # dtype; XLA ops expect operands matching the f32 weights
-        return y
-
-    for stage in tok["stages"]:
-        wd = stage["down"]["w"]
-        ci, co = int(wd.shape[3]), int(wd.shape[4])
-        # Mosaic legality: the kernel slices the (w + halo) scratch axis
-        # at extent w on the sublane dim — extents not 8-aligned fail to
-        # compile (HW: "Slice shape along dimension 2 must be aligned to
-        # tiling (8), but is 4" at block-w 4). Production 128³ ladders
-        # (64/32/16) are always legal; small test volumes demote.
-        down_ok = yb is not None and yb.shape[3] % 8 == 0
-        if down_ok and (8 * ci) % 128 == 0:
-            # stride-2 down conv straight from block space: the stride-2
-            # output grid IS the input block grid, so the kernel emits a
-            # dense tensor at 1.0x nominal FLOPs with no depth_to_space
-            # (the d2s relayout + misplaced-layout XLA conv were
-            # 3.2 + 4.0 ms of the 36.8 ms round-3 trace)
-            wdc = wd.astype(cd)
-            bd = stage["down"].get("b")
-            bd = jnp.zeros((co,), jnp.float32) if bd is None else bd
-            y = conv_down2_block(
-                yb,
-                wdc[:, :, :1].reshape(9 * ci, co),
-                wdc[:, :, 1:].reshape(18 * ci, co),
-                bd.astype(jnp.float32)[None],
-                act="none", out_dtype=cd, interpret=interpret,
-            )
-            if compute_dtype is None:
-                y = y.astype(x.dtype)
-        else:
-            y = conv(stage["down"], to_dense(y, yb), stride=2)
-        yb = None
-        if stage["blocks"] and _stage_sparse_ok(stage):
-            yb = space_to_depth(y.astype(cd), interpret=interpret)
-            y = None
-            yb = _instance_norm_any(
-                yb, True, eps=cfg.in_eps, act_fn=lrelu, act_name="lrelu"
-            )
-            for blk in stage["blocks"]:
-                r = yb
-                z = conv_block_sparse(
-                    yb, pack(blk["conv1"]), pad_type="zeros",
-                    interpret=interpret,
-                )
-                z = _instance_norm_any(
-                    z, True, eps=cfg.in_eps, act_fn=lrelu, act_name="lrelu"
-                )
-                z = conv_block_sparse(
-                    z, pack(blk["conv2"]), pad_type="zeros",
-                    interpret=interpret,
-                )
-                # IN + residual + act ride one block elementwise pass
-                yb = _instance_norm_any(
-                    z, True, eps=cfg.in_eps,
-                    act_fn=lambda v, r=r: lrelu(
-                        v + r.astype(jnp.float32)
-                    ),
-                )
-        else:
-            y = norm_act(y)
-            for blk in stage["blocks"]:
-                r = y
-                y = norm_act(conv(blk["conv1"], y))
-                y = conv(blk["conv2"], y)
-                y = jax.nn.leaky_relu(
-                    instance_norm(y, eps=cfg.in_eps) + r,
-                    negative_slope=0.01,
-                )
-    y = to_dense(y, yb)
-    y = conv3d(y, tok["proj"]["w"], tok["proj"].get("b"),
-               compute_dtype=compute_dtype)
-    return y
-
-
-def _decoder_block_space(dec, grid, compute_dtype=None, fuse_demean=False,
-                         interpret=False, emit="spatial"):
-    """Whole decoder tower in block space: the three ×2 transposed-conv
-    stages are per-sub-voxel GEMMs on the 16³ grid (never materializing
-    the 32³/64³ intermediate layouts or their LayerNorm relayouts — the
-    wave-27 trace charged ~2 ms of the 25 ms ViT forward to them), and
-    ONE factor-8 Pallas reshuffle (`reshuffle.depth_to_space8`) exits:
-    'packed' emits (B, 8d, 8h, w, 8C), the row-major byte image of the
-    spatial tensor, with ZERO relayout (the production inference fetch);
-    'spatial' adds one XLA minor-split reshape.
-
-    Math-identical to the stage-by-stage path: a stride-2 kernel-2
-    transposed conv is one GEMM whose output columns are (kd, kh, kw,
-    co)-major, and the inter-stage bias/LayerNorm/GELU act per sub-voxel
-    over channels — layout-independent. Returns (volume, demeaned,
-    packed) like `_decoder`, or None when the config is outside the
-    kernel's envelope (then the caller falls through to `_decoder`'s
-    stage-by-stage path). Reference semantics: the transposed-conv
-    decoder of `/root/reference/anatomix/model/vit3d/architectures.py`
-    (upstream Primus patch decoder)."""
-    from anatomix_tpu.ops.pallas.reshuffle import (
-        d2s8_supported,
-        depth_to_space8,
-    )
-
-    n = len(dec)
-    C = dec[-1]["w"].shape[4]
-    if n != 3 or not d2s8_supported(C):
-        return None
-    # 'fold' (the (…, 8wC/128, 128) flat-lane form the sliding scatter
-    # consumes) stays on the proven stage path: producing those rows
-    # in-kernel needs the sublane interleave Mosaic rejects (wave-28).
-    if emit not in ("spatial", "packed"):
-        return None
-    # the packed form is only byte-exact w.r.t. the FINAL output when the
-    # out-norm rides the kernel's subtract port — a spatial out_norm
-    # applied by the caller would see the packed layout
-    pack = emit == "packed"
-    if pack and not fuse_demean:
-        return None
-    dt = compute_dtype or grid.dtype
-    y = grid.astype(dt)  # (B, d, h, w, C0)
-    K = 1
-    for i, p in enumerate(dec):
-        w = p["w"]  # (2, 2, 2, ci, co)
-        ci, co = w.shape[3], w.shape[4]
-        w2 = jnp.transpose(w, (3, 0, 1, 2, 4)).reshape(ci, 8 * co)
-        # per-sub-voxel GEMM: (..., K, ci) @ (ci, 8co) -> (..., K, 8, co)
-        y = jnp.einsum(
-            "bdhwkc,ce->bdhwke", y.reshape(y.shape[:4] + (K, ci)),
-            w2.astype(dt), preferred_element_type=jnp.float32,
-        ).astype(dt)
-        K *= 8
-        y = y.reshape(y.shape[:4] + (K, co))
-        if i < n - 1:
-            if "b" in p:
-                y = y + p["b"].astype(y.dtype)
-            y = jax.nn.gelu(channel_layer_norm(y, eps=1e-6))
-    B = y.shape[0]
-    yk = y  # (B, d, h, w, 512, C)
-    y = y.reshape(y.shape[:4] + (512 * C,))
-    sub = None
-    demeaned = False
-    if fuse_demean:
-        # per-channel spatial mean over every voxel × sub-position — the
-        # same value set as the full-res mean; the final bias cancels
-        # under demean (demean(y + b) == demean(y))
-        m = jnp.mean(
-            yk.astype(jnp.float32), axis=(1, 2, 3, 4)
-        )  # (B, C)
-        sub = jnp.tile(m, (1, 512))
-        demeaned = True
-    elif "b" in dec[-1]:
-        # ride the final bias add on the exit kernel's subtract port
-        b = dec[-1]["b"].astype(jnp.float32)
-        sub = jnp.broadcast_to(jnp.tile(-b, 512)[None], (B, 512 * C))
-    out_dtype = y.dtype if pack else jnp.float32
-    vol = depth_to_space8(
-        y, sub=sub, out_dtype=out_dtype,
-        emit="packed" if pack else "spatial", interpret=interpret,
-    )
-    return vol, demeaned, pack
-
-
-def _decoder(cfg, dec, grid, compute_dtype=None, fuse_demean=False,
-             interpret=False, emit="spatial"):
+def _decoder(dec, grid, compute_dtype=None):
     """Transposed-conv ×2 stages back to full resolution.
 
     A stride-2 kernel-2 transposed conv has non-overlapping windows, so
-    each stage is exactly ONE GEMM into block layout (output channels
-    (ad, ah, aw)-major) followed by depth-to-space — XLA's conv_transpose
-    lowering is replaced by a plain matmul + the Pallas reshuffle.
-
-    With `fuse_demean` (the 'demean' out-norm) the final bias cancels
-    (demean(y + b) == demean(y)) and the per-channel spatial mean is taken
-    on the SMALL pre-d2s block tensor, with the subtract + f32 cast fused
-    into the exit reshuffle — the separate full-res f32 materialize /
-    reduce / sub chain was ~3 ms of the 36.8 ms round-3 ViT trace.
-    With `emit='fold'` the final stage returns the folded flat-lane form
-    (B, D, H, W*C/128, 128) for the sliding-window scatter kernel
-    (`reshuffle.depth_to_space_fold` — no full-res narrow-C tensor is
-    ever materialized). With `emit='packed'` the contract is only "a
-    row-major byte-exact repacking of the spatial output" — the
-    block-space path returns (B, D, H, W/8, 8C), this stage path returns
-    the fold form — for byte-level consumers (host fetch).
-    Returns (volume, demeaned: bool, folded/packed: bool).
-    """
-    from anatomix_tpu.ops.pallas.conv3x3 import _depth_to_space
-    from anatomix_tpu.ops.pallas.reshuffle import depth_to_space as _d2s
-    from anatomix_tpu.ops.pallas.reshuffle import (
-        depth_to_space_fold,
-        fold_supported,
-    )
-
-    on_tpu = jax.default_backend() not in ("cpu",) or interpret
+    each stage is exactly ONE GEMM into (kd, kh, kw, co)-major channels
+    followed by a depth-to-space reshape. Between stages the volume stays
+    in the compute dtype; the inter-stage LayerNorm takes its statistics
+    in f32 and the decoder output is f32."""
     y = grid
     n = len(dec)
-    # default ON: the factor-8 packed emit passed the wave-29 HW Mosaic
-    # probe (bit-exact, tools/logs/w29_d2s8.log) and the block-space
-    # decoder measured faster in both emit modes (packed 18.69 vs
-    # 18.85 ms, spatial 19.69 vs 20.05 — tools/logs/w29_vitab.log);
-    # parity vs the stage path is pinned by test_vit3d's decoder A/B
-    if on_tpu and os.environ.get("ANATOMIX_DECODER_BLOCK", "1") == "1":
-        yb = _decoder_block_space(
-            dec, grid, compute_dtype=compute_dtype,
-            fuse_demean=fuse_demean, interpret=interpret, emit=emit,
-        )
-        if yb is not None:
-            return yb
     for i, p in enumerate(dec):
         w = p["w"]  # (2, 2, 2, in, out)
         ci, co = w.shape[3], w.shape[4]
@@ -917,54 +471,12 @@ def _decoder(cfg, dec, grid, compute_dtype=None, fuse_demean=False,
             "bdhwc,ce->bdhwe", y.astype(dt), w2.astype(dt),
             preferred_element_type=jnp.float32,
         ).astype(dt)
-        use_kernel_d2s = on_tpu and co >= 8
-        if fuse_demean and i == n - 1 and use_kernel_d2s:
-            B = yb.shape[0]
-            m8 = jnp.mean(yb.astype(jnp.float32), axis=(1, 2, 3))
-            m = m8.reshape(B, 8, co).mean(axis=1)  # (B, C) spatial mean
-            if (emit in ("fold", "packed")
-                    and fold_supported(co, yb.shape[3])):
-                # 'packed' on the stage path degrades to the fold form —
-                # also a byte-exact spatial repacking, different shape
-                # bf16 folded windows: the demean subtract still runs in
-                # f32 inside the kernel, and the sliding scatter
-                # accumulates in f32 — the bf16 hop halves the exit
-                # write + stitch read (same precision class as the UNet
-                # sliding path, whose window outputs are compute-dtype)
-                y = depth_to_space_fold(
-                    yb, sub=jnp.tile(m, (1, 8)),
-                    out_dtype=yb.dtype, interpret=interpret,
-                )
-                return y, True, True
-            if os.environ.get("ANATOMIX_D2S_INTERLEAVE", "0") == "1":
-                # opt-in only: the in-kernel (w,2C)->(2w,C) minor-split
-                # reshape is an unsupported Mosaic shape cast on real HW
-                # (wave-28 probe) — would kill the 4.5 ms XLA relayout at
-                # the 128³ exit if a legal formulation lands
-                from anatomix_tpu.ops.pallas.reshuffle import (
-                    depth_to_space_interleave,
-                )
-
-                y = depth_to_space_interleave(
-                    yb, sub=jnp.tile(m, (1, 8)),
-                    out_dtype=jnp.float32, interpret=interpret,
-                )
-                return y, True, False
-            y = _d2s(yb, sub=jnp.tile(m, (1, 8)),
-                     out_dtype=jnp.float32, interpret=interpret)
-            return y, True, False
-        # stay in compute dtype between stages: materializing the d2s
-        # output in f32 cost ~4.3 ms of pure HBM traffic at the 128³ stage
-        # (trace r3); the inter-stage LayerNorm computes its statistics in
-        # f32 internally regardless, and the final f32 cast happens once at
-        # the decoder output.
-        y = (_d2s(yb, interpret=interpret) if use_kernel_d2s
-             else _depth_to_space(yb))
+        y = _depth_to_space2(yb, co)
         if "b" in p:
             y = y + p["b"].astype(y.dtype)
         if i < n - 1:
             y = jax.nn.gelu(channel_layer_norm(y, eps=1e-6))
-    return y.astype(jnp.float32), False, False
+    return y.astype(jnp.float32)
 
 
 def primus_apply(
@@ -975,23 +487,16 @@ def primus_apply(
     layers=None,
     encode_only: bool = False,
     compute_dtype=None,
-    tokenizer_impl: str = "auto",
-    emit: str = "spatial",
+    attn_impl: str | None = None,
 ):
     """Forward pass with the anatomix pretraining interface
     (`architectures.py:126-165`): plain -> normalized volume; `layers`
     truthy -> (volume, [volume]) or, with `encode_only`, [volume].
 
-    `tokenizer_impl`: 'auto' = block-space Pallas tokenizer on TPU, XLA on
-    CPU; 'fused' / 'xla' force (the fused path uses interpret mode on CPU,
-    for tests).
-
-    `emit`: 'spatial' (default) returns (B, D, H, W, C); 'fold' returns
-    the flat-lane form (B, D, H, W*C/128, 128) the sliding-window scatter
-    consumes; 'packed' returns SOME row-major byte-exact repacking of the
-    spatial tensor — shape depends on the decoder path ((…, W*C/128, 128)
-    or (…, W/8, 8C)) — for byte-level consumers (host fetch / np.reshape).
-    Both non-spatial emits skip the narrow-C relayout on TPU."""
+    `attn_impl` forces one attention implementation ('einsum', 'xla' or
+    'cudnn', see `dot_product_attention`); by default the platform's
+    fastest that supports the compute dtype
+    (`backend.attention_implementation`)."""
     if tuple(x.shape[1:4]) != tuple(cfg.input_shape):
         raise ValueError(
             f"Primus is bound to input_shape={cfg.input_shape}; got "
@@ -1000,21 +505,13 @@ def primus_apply(
     B = x.shape[0]
 
     if cfg.version == "v2":
-        use_fused = tokenizer_impl == "fused" or (
-            tokenizer_impl == "auto" and jax.default_backend() != "cpu"
-        )  # per-stage sparse/XLA gating lives in _tokenizer_v2_fused
-        tok_fn = _tokenizer_v2_fused if use_fused else _tokenizer_v2
-        # 4-D (B, D, H, W) channel-less input: the fused tokenizer packs
-        # it directly (space_to_depth_4d); the XLA tokenizer needs the
-        # explicit channel dim
-        x_tok = x[..., None] if x.ndim == 4 and not use_fused else x
-        grid = tok_fn(
-            cfg, params["tokenizer"], x_tok, compute_dtype=compute_dtype
+        grid = _tokenizer_v2(
+            cfg, params["tokenizer"], x, compute_dtype=compute_dtype
         )
     else:
         p = cfg.patch_embed_size
         grid = conv3d(
-            x if x.ndim == 5 else x[..., None],
+            x,
             params["tokenizer"]["proj"]["w"],
             params["tokenizer"]["proj"].get("b"),
             stride=p, padding="VALID", compute_dtype=compute_dtype,
@@ -1039,7 +536,7 @@ def primus_apply(
     for block in params["blocks"]:
         attn_out = _attention(
             cfg, block, _layer_norm(tokens, block["norm1"]), rope,
-            n_prefix, compute_dtype=compute_dtype,
+            n_prefix, compute_dtype=compute_dtype, attn_impl=attn_impl,
         )
         if "gamma1" in block:
             attn_out = attn_out * block["gamma1"]
@@ -1053,25 +550,8 @@ def primus_apply(
     tokens = tokens[:, n_prefix:]
     grid = tokens.reshape(B, gd, gh, gw, cfg.embed_dim)
 
-    mode = cfg.out_norm
-    if isinstance(mode, bool):
-        mode = "instance" if mode else "none"
-    volume, demeaned, folded = _decoder(
-        cfg, params["decoder"], grid, compute_dtype=compute_dtype,
-        fuse_demean=(mode or "none").lower() in ("demean", "center"),
-        emit=emit,
-    )
-    if demeaned:
-        output = volume
-    else:
-        out_norm = build_out_norm(cfg.out_norm, cfg.out_norm_eps)
-        output = out_norm(volume)
-
-    if emit in ("fold", "packed") and not folded:
-        # fallback: fold via an XLA reshape (caller guaranteed
-        # (W*C) % 128 == 0 via scatter_kernel_eligible)
-        B_, D_, H_, W_, C_ = output.shape
-        output = output.reshape(B_, D_, H_, (W_ * C_) // 128, 128)
+    volume = _decoder(params["decoder"], grid, compute_dtype=compute_dtype)
+    output = build_out_norm(cfg.out_norm, cfg.out_norm_eps)(volume)
 
     if layers:
         features = [output]

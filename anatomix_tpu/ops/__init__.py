@@ -1,4 +1,4 @@
-"""TPU-native op library (channel-last / NDHWC throughout)."""
+"""Op library (channel-last / NDHWC throughout)."""
 
 from anatomix_tpu.ops.activations import get_activation
 from anatomix_tpu.ops.conv import conv3d, pad_same

@@ -1,10 +1,9 @@
 """3D convolution with torch-compatible 'same' padding semantics, NDHWC.
 
-TPU-first design notes
-----------------------
-* Data layout is channel-last (NDHWC) and kernels are DHWIO, which is what
-  XLA tiles best onto the MXU for 3D convs (the lane dimension is the channel
-  dimension).
+Design notes
+------------
+* Data layout is channel-last (NDHWC) and kernels are DHWIO; on the GPU
+  XLA hands these convolutions to cuDNN.
 * Reflect/replicate padding is applied explicitly with `jnp.pad` followed by
   a VALID convolution; zero padding uses the convolution's own `SAME` padding
   so XLA can fuse it.
@@ -66,9 +65,9 @@ def conv3d(
     'VALID', or explicit [(lo, hi)] * 3. Non-zero `pad_type` forces explicit
     padding + VALID conv.
 
-    `precision`: fp32 inputs default to Precision.HIGHEST so TPU does true
-    fp32 convs (the default bf16-pass mode breaks the ≤1e-3 parity target);
-    pass `compute_dtype=jnp.bfloat16` for the fast path instead.
+    `precision`: fp32 inputs default to Precision.HIGHEST so the GPU does
+    true fp32 convs (a TF32 conv breaks the ≤1e-3 parity target); pass
+    `compute_dtype=jnp.bfloat16` for the fast path instead.
     """
     if isinstance(stride, int):
         stride = (stride,) * 3
@@ -94,7 +93,7 @@ def conv3d(
 
     # f32 accumulation is requested only for f32 inputs: with bf16 inputs a
     # f32 preferred_element_type breaks the conv transpose rule (the f32
-    # cotangent mismatches the bf16 operand under jax.grad); the MXU still
+    # cotangent mismatches the bf16 operand under jax.grad); cuDNN still
     # accumulates bf16 convs in f32 internally before the output rounding.
     y = jax.lax.conv_general_dilated(
         x,
@@ -120,7 +119,7 @@ def torch_conv_weight_to_jax(w: np.ndarray) -> np.ndarray:
     1D/2D kernels embed as 3D with leading singleton kernel axes:
     Conv1d (O, I, k) -> (1, 1, k, I, O); Conv2d (O, I, kh, kw) ->
     (1, kh, kw, I, O) — the layout under which 1D/2D models run through
-    the same NDHWC TPU conv path (`models/unet.py`)."""
+    the same NDHWC conv path (`models/unet.py`)."""
     ndims = w.ndim - 2
     assert 1 <= ndims <= 3, f"conv weight rank {w.ndim} unsupported"
     axes = tuple(range(2, 2 + ndims)) + (1, 0)

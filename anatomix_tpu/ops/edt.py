@@ -1,6 +1,6 @@
-"""Exact Euclidean distance/feature transform, jittable on TPU.
+"""Exact Euclidean distance/feature transform, jittable on the device.
 
-TPU-native replacement for the scipy `distance_transform_edt(...,
+On-device replacement for the scipy `distance_transform_edt(...,
 return_indices=True)` host call the reference uses for masked feature-merge
 infill (`/root/reference/anatomix/registration/instance_optimization.py:67-96`).
 Running it on device avoids shipping whole volumes host->device->host through
@@ -13,8 +13,7 @@ Method: the squared EDT is separable, so it factors into three 1-D min-plus
 
 Each pass is computed exactly by brute-force min over j, vectorized across
 all other voxels and chunked over the output index i (O(n) work per voxel
-per axis — at the reference's ::2-subsampled 128^3 this is ~0.8 G adds+mins,
-trivially VPU-bound). Nearest-voxel indices are carried through the passes:
+per axis — at the reference's ::2-subsampled 128^3 this is ~0.8 G adds+mins). Nearest-voxel indices are carried through the passes:
 pass a yields the argmin j along axis a, and the indices found by earlier
 passes are gathered at that j.
 

@@ -13,7 +13,7 @@ Used in four reference call sites: inverse consistency
 (`run_convex_adam_with_network_feats.py:248-266`), and mask infill.
 
 Implemented as 8 masked corner gathers over a flattened volume —
-XLA lowers these to efficient TPU gathers, and the expression is
+XLA lowers these to plain gathers, and the expression is
 differentiable in both the volume and the grid (grad w.r.t. the grid flows
 through the trilinear weights, which instance optimization requires).
 """
@@ -117,15 +117,14 @@ def grid_sample(
 def make_packed_sampler(vol: jax.Array, *, align_corners: bool = False):
     """Build a fast repeated-warp sampler for one volume.
 
-    TPU gathers cost per ROW (~40M rows/s measured), not per byte; the
-    8-corner trilinear gather is therefore 8× slower than necessary. This
-    packs the 2×2×2 neighborhood into channels once (one zero-padded shifted
-    concat), so each subsequent `sample(grid)` does ONE row-gather of
-    (N, 8·C) and combines corners with elementwise weights — identical
-    results to `grid_sample(vol, grid)` (bilinear, zeros padding), ~5×
-    faster per call. Use when the same volume is sampled many times (the
-    Adam instance-optimization loop: 80 warps of the same features,
-    `instance_optimization.py:329-384`).
+    Packs the 2×2×2 neighborhood into channels once (one zero-padded
+    shifted concat), so each subsequent `sample(grid)` does ONE row-gather
+    of (N, 8·C) instead of 8 and combines corners with elementwise weights
+    — identical results to `grid_sample(vol, grid)` (bilinear, zeros
+    padding). The layout was chosen for a device whose gathers cost per
+    row; whether it pays on the GPU is not measured yet. Use when the same
+    volume is sampled many times (the Adam instance-optimization loop: 80
+    warps of the same features, `instance_optimization.py:329-384`).
     """
     N_, D, H, W, C = vol.shape
     if N_ != 1:

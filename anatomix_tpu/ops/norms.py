@@ -9,14 +9,12 @@ network.py:127-168`):
 * 'instance_affine' -> instance norm with learned scale/bias.
 
 Normalization statistics are always computed in float32 regardless of the
-activations' dtype (the TPU-native replacement for AMP: bf16 matmuls with
-fp32 norms).
+activations' dtype (the replacement for AMP: bf16 convs with fp32 norms).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +37,8 @@ def instance_norm(
     be equal-sized).
     """
     # one-pass E[x²]−E[x]² statistics: the (x − mean)² form has two uses
-    # of a full-size f32 intermediate, which XLA materializes to HBM (a
-    # ~2.7 ms copy per norm at 128³×32ch); the moment form keeps the only
+    # of a full-size f32 intermediate, which XLA materializes to device memory (a
+    # ~0.5 GB copy per norm at 128³×32ch); the moment form keeps the only
     # full-size pass inside the final normalize fusion. f32 moments are
     # ample for unit-scale activations.
     x32 = x.astype(jnp.float32)
@@ -63,12 +61,10 @@ def _even_chunk_sizes(size: int, n: int) -> list[int]:
     with the invariant `_even_chunk_sizes(2*s, n) == 2*_even_chunk_sizes(s, n)`
     whenever `s >= n` (recursing while the size stays even and splittable).
 
-    The invariant makes tile boundaries identical between full-resolution
-    and block (space-to-depth, halved-dims) layouts at EVERY depth — the
-    fused UNet's block-space tiled instance norm computes chunks on the
-    halved dims (`models/unet_fused.py`) and must agree with the plain
-    path exactly; a single halving level is not enough (e.g. 352/3:
-    [118,118,116] vs 2*[60,58,58]).
+    The invariant makes tile boundaries line up between a level and the
+    level below it (half the size) at EVERY depth, so per-tile statistics
+    of a halved volume cover the same voxels; a single halving level is
+    not enough (e.g. 352/3: [118,118,116] vs 2*[60,58,58]).
     """
     if size < n:
         raise ValueError(
@@ -127,7 +123,7 @@ def tiled_instance_norm(
         # EVEN tiles: free major-dim splits + cast-fused reductions and
         # a broadcast apply — the generic path materializes f32 squares
         # and rebroadcasts stats via jnp.repeat (while-loops + dynamic-
-        # update-slices, ~70 ms of the dev full_tiled 256³ trace, w47)
+        # update-slices)
         B, D, H, W, C = x.shape
         t0, t1, t2 = nt
         d0, h0, w0 = D // t0, H // t1, W // t2
@@ -199,8 +195,7 @@ def batch_norm_inference(
 def _bn_train_impl(x, scale, bias, eps, axis_name):
     """Shared forward: returns (y, mean, biased var, inv)."""
     x32 = x.astype(jnp.float32)
-    # reduce every non-channel axis: 5-D spatial (B, D, H, W, C) or the
-    # 6-D block-layout view (B, d, h, w, 8, C)
+    # reduce every non-channel axis
     reduce_axes = tuple(range(x.ndim - 1))
     mean = jnp.mean(x32, axis=reduce_axes)
     mean_sq = jnp.mean(jnp.square(x32), axis=reduce_axes)
@@ -216,7 +211,7 @@ def _bn_train_impl(x, scale, bias, eps, axis_name):
         # sub-f32 inputs: fold (mean, invstd, scale, bias) into a
         # per-channel affine applied in the input dtype — the f32
         # materialization of the normalized volume (plus its VJP) was
-        # ~30 ms of the traced pretraining step. Subtract-first form:
+        # a large share of the pretraining step. Subtract-first form:
         # (x - mean_b) is exact in bf16 near the mean (Sterbenz), so the
         # rounding error scales with the DEVIATION, not the DC offset —
         # the naive x*a + b form loses |mean*a|*2^-8 to cancellation when
@@ -237,9 +232,8 @@ def _bn_train_norm(x, scale, bias, eps, axis_name):
     """(y, mean, biased var) with a hand 2-reduction backward.
 
     XLA's autodiff through the mean/var graph re-materializes several
-    full-size f32 intermediates (~36 ms of the 274 ms pretraining step,
-    wave-26 trace); the analytic BN adjoint is two fused reductions
-    (sum dy, sum dy·x̂) plus one elementwise pass."""
+    full-size f32 intermediates; the analytic BN adjoint is two fused
+    reductions (sum dy, sum dy·x̂) plus one elementwise pass."""
     y, mean, var, _ = _bn_train_impl(x, scale, bias, eps, axis_name)
     return y, mean, var
 
@@ -297,14 +291,10 @@ def batch_norm_train(
     updated with the *unbiased* variance, exactly like torch.
 
     If `axis_name` is given, statistics are all-reduced across that mesh axis
-    (the TPU-native equivalent of SyncBatchNorm over ICI). The backward is
-    the hand analytic adjoint (`_bn_train_norm`); opt out with
-    ANATOMIX_BN_VJP=0 (trace-time only).
+    (the equivalent of SyncBatchNorm). The backward is the hand analytic
+    adjoint (`_bn_train_norm`).
     """
-    if os.environ.get("ANATOMIX_BN_VJP", "1") == "1":
-        y, mean, var = _bn_train_norm(x, scale, bias, eps, axis_name)
-    else:
-        y, mean, var, _ = _bn_train_impl(x, scale, bias, eps, axis_name)
+    y, mean, var = _bn_train_norm(x, scale, bias, eps, axis_name)
     n = int(np.prod(x.shape[:-1]))
     if axis_name is not None:
         n = n * jax.lax.psum(1, axis_name)
@@ -312,47 +302,6 @@ def batch_norm_train(
     new_mean = (1 - momentum) * running_mean + momentum * mean
     new_var = (1 - momentum) * running_var + momentum * unbiased
     return y, new_mean, new_var
-
-
-def batch_norm_train_block(
-    xb: jax.Array,  # (B, d, h, w, 8*C) block layout
-    running_mean: jax.Array,
-    running_var: jax.Array,
-    scale: jax.Array,
-    bias: jax.Array,
-    *,
-    eps: float = 1e-5,
-    momentum: float = 0.1,
-    axis_name: str | None = None,
-):
-    """`batch_norm_train` on a block-layout tensor: statistics pool over
-    batch, block-space and the 8 sub-position lane groups — exactly the
-    full-resolution batch statistics (the lane-dim split view is free in
-    XLA; same trick as the fused inference instance norm)."""
-    B, d, h, w, c8 = xb.shape
-    x6 = xb.reshape(B, d, h, w, 8, c8 // 8)
-    y6, m, v = batch_norm_train(
-        x6, running_mean, running_var, scale, bias,
-        eps=eps, momentum=momentum, axis_name=axis_name,
-    )
-    return y6.reshape(xb.shape), m, v
-
-
-def batch_norm_inference_block(
-    xb: jax.Array,
-    mean: jax.Array,
-    var: jax.Array,
-    scale: jax.Array,
-    bias: jax.Array,
-    *,
-    eps: float = 1e-5,
-) -> jax.Array:
-    """`batch_norm_inference` on a block-layout tensor (per-channel affine
-    with parameters tiled over the 8 sub-position lane groups)."""
-    tile8 = lambda t: jnp.tile(t, 8)
-    return batch_norm_inference(
-        xb, tile8(mean), tile8(var), tile8(scale), tile8(bias), eps=eps
-    )
 
 
 def channel_demean(x: jax.Array) -> jax.Array:
@@ -366,10 +315,8 @@ def channel_layer_norm(x: jax.Array, *, eps: float = 1e-5) -> jax.Array:
     """Per-voxel LayerNorm over channels, no affine (ViT ChannelLayerNorm).
 
     Statistics are computed in f32; for sub-f32 inputs the normalize is
-    applied in the input dtype (the ViT trace showed XLA materializing
-    the broadcast mean/rsqrt as full f32 tensors between the Pallas d2s
-    boundary and the mul — ~1.9 ms of the 29.7 ms forward; a bf16 apply
-    halves that traffic and changes values by less than bf16 rounding of
+    applied in the input dtype (a bf16 apply halves the traffic of the
+    broadcast mean/rsqrt and changes values by less than bf16 rounding of
     the f32 result)."""
     x32 = x.astype(jnp.float32)
     mean = jnp.mean(x32, axis=-1, keepdims=True)

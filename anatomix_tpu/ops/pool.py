@@ -40,13 +40,9 @@ def _reduce_max(x, w, s):
 def _max_pool2x(x):
     """2x2x2 stride-2 MaxPool with an argmax-routed backward.
 
-    RETIRED from the default path (kept for the regression record): the
-    one-hot/argmax adjoint was built because select-and-scatter read
-    8.3 ms in the round-3 step trace, but the isolated wave-27 A/B
-    (tools/_exp_bnpool.py) measured the custom VJP at 13.6 ms vs XLA's
-    select-and-scatter at 6.4 ms on the (2,128³,16) train shape — the
-    one-hot lowers to s32 iota-eq broadcasts plus two full layout
-    shuffles. `max_pool` routes to the plain reduce_window again."""
+    Not on the default path: `max_pool` uses XLA's reduce_window and its
+    select-and-scatter backward. Kept as the tie-routing reference its
+    test pins."""
     return _reduce_max(x, (2, 2, 2), (2, 2, 2))
 
 
@@ -78,8 +74,7 @@ def max_pool(x: jax.Array, window: int = 2, stride: int | None = None):
     """MaxPool over spatial dims of NDHWC (torch ceil_mode=False).
 
     Backward is XLA's select-and-scatter (first-max tie routing, matching
-    torch) — measured 2.1x faster than the retired argmax/one-hot custom
-    VJP (`_max_pool2x`, wave-27 A/B)."""
+    torch)."""
     w = _as3(window)
     s = _as3(stride if stride is not None else window)
     return _reduce_max(x, w, s)

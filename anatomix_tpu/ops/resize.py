@@ -83,8 +83,8 @@ def _upsample2x_linear_axis(x, axis):
     """Exact x2 linear upsample, torch align_corners=False:
     out[2i] = 0.75*x[i] + 0.25*x[i-1]; out[2i+1] = 0.75*x[i] + 0.25*x[i+1]
     (edge-clamped). Shift + interleave only — `jnp.take` along a non-minor
-    spatial axis lowers to a while-loop of dynamic slices (~13 ms per axis
-    at 128-cube/32ch; this form is a few fused elementwise passes)."""
+    spatial axis lowers to a while-loop of dynamic slices; this form is a
+    few fused elementwise passes."""
     f32 = x.astype(jnp.float32)
     even = 0.75 * f32 + 0.25 * _shift_lo(f32, axis)
     odd = 0.75 * f32 + 0.25 * _shift_hi(f32, axis)
@@ -138,90 +138,3 @@ def upsample2x(x: jax.Array, mode: str = "nearest") -> jax.Array:
     """The UNet decoder's `nn.Upsample(scale_factor=2, mode=...)`."""
     size = tuple(2 * s for s in x.shape[1:4])
     return resize3d(x, size, mode=mode, align_corners=False)
-
-
-def upsample2x_trilinear_block(x: jax.Array) -> jax.Array:
-    """Exact x2 trilinear upsample emitted directly in BLOCK layout.
-
-    Input `(B, s, s, s, C)` spatial; output `(B, s, s, s, 8C)` — the
-    `_space_to_depth(upsample2x(x, 'trilinear'))` tensor with the
-    (sub_d, sub_h, sub_w)-major channel convention of
-    `ops/pallas/conv3x3._space_to_depth`, built WITHOUT materializing the
-    8x spatial tensor or paying the s2d relayout. Each sub-position plane
-    is a separable (0.75, 0.25) stencil of the small tensor (the even/odd
-    rows of torch's align_corners=False x2 kernel), so the whole op is
-    14 small-volume elementwise passes that XLA fuses into the final
-    concat — vs the spatial path's f32 interleave pyramid + relayout
-    (~14 ms of the 94M dev fused forward at 128-cube, wave-32 trace).
-
-    Arithmetic runs in `x.dtype` (the spatial path upcasts to f32): in
-    the bf16 fused decoder the extra rounding is ~2^-9 per axis, below
-    the bf16 conv noise floor; f32 inputs reproduce the spatial path
-    bit-exactly (same nested multiply-add tree, D then H then W).
-    `ANATOMIX_TRILIN_F32=1` restores f32 arithmetic for A/B debugging
-    (ADVICE r4 #3); `ANATOMIX_TRILIN_FLAT=0` restores the per-axis tree
-    form (bit-exact vs the spatial path at f32).
-    """
-    import os as _os
-
-    if (
-        _os.environ.get("ANATOMIX_TRILIN_F32", "0") == "1"
-        and x.dtype != jnp.float32
-    ):
-        in_dtype = x.dtype
-        return upsample2x_trilinear_block(
-            x.astype(jnp.float32)
-        ).astype(in_dtype)
-
-    if _os.environ.get("ANATOMIX_TRILIN_FLAT", "1") != "0":
-        # one-pass form: each sub-position is a flat 8-corner stencil of
-        # the edge-padded tensor — no materialized per-axis intermediates
-        # (the tree form's partial sums were ~4.8 ms of the 94M dev fwd
-        # at 128³, wave-33 trace). Association order differs from the
-        # spatial path, so f32 is allclose (1 ulp/axis), not bit-exact.
-        S = x.shape[1:4]
-        xp = jnp.pad(
-            x, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)), mode="edge"
-        )
-        subs = []
-        for sd in (0, 1):
-            for sh in (0, 1):
-                for sw in (0, 1):
-                    dirs = tuple(
-                        -1 if s == 0 else 1 for s in (sd, sh, sw)
-                    )
-                    # accumulate in f32 (in-register inside the fusion;
-                    # only the final bf16 store hits HBM)
-                    acc = None
-                    for md in (0, dirs[0]):
-                        for mh in (0, dirs[1]):
-                            for mw in (0, dirs[2]):
-                                nz = (md != 0) + (mh != 0) + (mw != 0)
-                                coeff = jnp.float32(
-                                    0.75 ** (3 - nz) * 0.25 ** nz
-                                )
-                                t = coeff * jax.lax.slice(
-                                    xp,
-                                    (0, 1 + md, 1 + mh, 1 + mw, 0),
-                                    (
-                                        xp.shape[0],
-                                        1 + md + S[0],
-                                        1 + mh + S[1],
-                                        1 + mw + S[2],
-                                        xp.shape[4],
-                                    ),
-                                ).astype(jnp.float32)
-                                acc = t if acc is None else acc + t
-                    subs.append(acc.astype(x.dtype))
-        return jnp.concatenate(subs, axis=-1)
-
-    subs = [x]
-    for axis in (1, 2, 3):
-        c75 = jnp.asarray(0.75, x.dtype)
-        c25 = jnp.asarray(0.25, x.dtype)
-        nxt = []
-        for t in subs:
-            nxt.append(c75 * t + c25 * _shift_lo(t, axis))
-            nxt.append(c75 * t + c25 * _shift_hi(t, axis))
-        subs = nxt
-    return jnp.concatenate(subs, axis=-1)

@@ -1,6 +1,6 @@
 """jit-compiled sliding-window inference with Gaussian-blend stitching.
 
-TPU-native replacement for MONAI's `sliding_window_inference` as used by the
+Replacement for MONAI's `sliding_window_inference` as used by the
 reference for whole-volume feature extraction (128³ windows, overlap 0.8,
 gaussian blending, sigma_scale 0.25, sw_batch 2 —
 `/root/reference/anatomix/registration/convex_adam_utils.py:202-219`) and
@@ -20,46 +20,19 @@ Design
   numpy at trace time and baked in as a constant.
 * Multi-chip: windows are embarrassingly parallel. With a `Mesh`, the window
   list is sharded over the mesh axis via `shard_map`; each device accumulates
-  its windows locally and a single `psum` over ICI merges the accumulators.
+  its windows locally and a single `psum` merges the accumulators.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import os
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-
-
-def gaussian_importance_axes(roi_size, sigma_scale: float = 0.25):
-    """Separable factors of the MONAI Gaussian importance map: per-axis
-    windows normalized so their outer product equals m / m.max(), plus the
-    clamp floor max(min_nonzero, 1e-3). The map itself is
-    clip(outer(g0, g1, g2), minv, None)."""
-    axes = []
-    for size in roi_size:
-        sigma = sigma_scale * size
-        center = size // 2
-        i = np.arange(size, dtype=np.float64)
-        denom = sigma * math.sqrt(2.0)
-        from scipy.special import erf  # scipy is available via jax deps
-
-        w = 0.5 * (
-            erf((i - center + 0.5) / denom) - erf((i - center - 0.5) / denom)
-        )
-        axes.append(w / w.max())
-    m = (
-        axes[0][:, None, None]
-        * axes[1][None, :, None]
-        * axes[2][None, None, :]
-    )
-    minv = max(float(m[m > 0].min()), 1e-3)
-    return axes, minv
 
 
 def gaussian_importance_map(
@@ -70,14 +43,27 @@ def gaussian_importance_map(
     MONAI builds it by convolving a one-hot at the center voxel
     (`roi // 2` per axis) with an erf-discretized Gaussian of
     `sigma = sigma_scale * roi`, normalizing to max 1, then clamping to
-    `max(min_nonzero, 1e-3)`.
+    `max(min_nonzero, 1e-3)`. The map is separable: the outer product of
+    per-axis windows, each normalized to max 1.
     """
-    axes, minv = gaussian_importance_axes(roi_size, sigma_scale)
+    from scipy.special import erf
+
+    axes = []
+    for size in roi_size:
+        sigma = sigma_scale * size
+        center = size // 2
+        i = np.arange(size, dtype=np.float64)
+        denom = sigma * math.sqrt(2.0)
+        w = 0.5 * (
+            erf((i - center + 0.5) / denom) - erf((i - center - 0.5) / denom)
+        )
+        axes.append(w / w.max())
     m = (
         axes[0][:, None, None]
         * axes[1][None, :, None]
         * axes[2][None, None, :]
     )
+    minv = max(float(m[m > 0].min()), 1e-3)
     return np.clip(m, minv, None).astype(np.float32)
 
 
@@ -118,8 +104,7 @@ def blend_weight_map(image_size, starts: np.ndarray, imp: np.ndarray):
 
 
 def _pad_to_roi(volume, roi_size):
-    """Symmetric zero-pad spatial dims up to at least roi (MONAI `pad_nd`).
-    Accepts (1, D, H, W, C) or the channel-less (1, D, H, W) form."""
+    """Symmetric zero-pad spatial dims up to at least roi (MONAI `pad_nd`)."""
     spatial = volume.shape[1:4]
     pads = [(0, 0)]
     crops = []
@@ -128,31 +113,10 @@ def _pad_to_roi(volume, roi_size):
         half = diff // 2
         pads.append((half, diff - half))
         crops.append((half, half + img))
-    if volume.ndim == 5:
-        pads.append((0, 0))
+    pads.append((0, 0))
     if any(p != (0, 0) for p in pads):
         volume = jnp.pad(volume, pads)
     return volume, crops
-
-
-def scatter_kernel_eligible(
-    W: int,
-    r2: int,
-    out_channels: int,
-    acc_dtype=jnp.float32,
-    interpret: bool = False,
-) -> bool:
-    """True when the Pallas blend-scatter kernel path will be used for
-    these shapes (given gaussian/constant blending). Model exits use
-    this to decide whether to emit the folded (…, r2*C/128, 128) window
-    form directly (`reshuffle.depth_to_space_fold`)."""
-    return (
-        acc_dtype == jnp.float32
-        and (W * out_channels) % 128 == 0
-        and (r2 * out_channels) % 128 == 0
-        and os.environ.get("ANATOMIX_SCATTER_KERNEL", "1") == "1"
-        and (jax.default_backend() not in ("cpu",) or interpret)
-    )
 
 
 def _scan_windows(
@@ -166,29 +130,16 @@ def _scan_windows(
     sw_batch_size: int,
     acc_dtype,
     vary_axis: str | None = None,
-    imp_factors=None,  # (per-axis f64 factors, clamp floor) — kernel path
-    interpret: bool = False,
 ):
-    if volume3d.ndim == 3:
-        # channel-less packed form (C == 1 and apply_fn.accepts_4d): the
-        # (…, W, 1) 4-D view is 128x lane-padded under T(8,128), so a
-        # 128³ f32 window slice reads/writes ~1 GB of physical HBM per
-        # window; the 3-D view tiles (H, W) — 8 MB per slice
-        D, H, W = volume3d.shape
-        C = 1
-    else:
-        D, H, W, C = volume3d.shape
+    D, H, W, C = volume3d.shape
     r0, r1, r2 = roi_size
     M = starts.shape[0]
     n_chunks = M // sw_batch_size
 
-    # Lane-folded accumulator: window starts follow MONAI's ~0.2*roi stride
-    # and are neither lane- nor sublane-aligned; a (..., W, C<128) f32
-    # accumulator is additionally lane-padded (4x for C=32). Folding
-    # (W, C) -> full 128-lane groups and shifting each window product into
-    # a w-aligned canvas (ONE sublane dynamic_slice) makes the
-    # read-modify-write lane-aligned: 13.7 -> 5.5 ms/window measured on
-    # the 343-window 256^3 case (tools/_exp_scatter.py s0 vs s2).
+    # Folded accumulator: (W, C) is folded into rows of 128 values and
+    # each window product is shifted into a fold-aligned canvas, so every
+    # read-modify-write starts on a row boundary. Whether this beats a
+    # plain (…, W, C) accumulator on the GPU is not measured yet.
     fold = 128 // out_channels if 128 % out_channels == 0 else 1
     fold = math.gcd(math.gcd(fold, W), r2)  # canvas/acc widths must fold
     Wf = (W + fold) // fold if fold > 1 else W
@@ -201,80 +152,14 @@ def _scan_windows(
         acc0 = jax.lax.pcast(acc0, (vary_axis,), to="varying")
 
     def slice_window(s):
-        if volume3d.ndim == 3:
-            return jax.lax.dynamic_slice(
-                volume3d, (s[0], s[1], s[2]), (r0, r1, r2)
-            )
         return jax.lax.dynamic_slice(
             volume3d, (s[0], s[1], s[2], 0), (r0, r1, r2, C)
         )
-
-    # Pallas scatter kernel: in-place slab RMW near the HBM traffic floor
-    # (the XLA dynamic-update-slice chain below costs ~4 ms/window,
-    # canvas-size-independent — tools/_exp_scatter2.py). v3 design: 3-D
-    # flat-lane canvas with 8 slack h-rows, DMA offsets dynamic on the
-    # untiled d dim and 8-ALIGNED on the sublane h dim, with the sub-tile
-    # h offset and the window w placement as in-register sublane/lane
-    # rolls (v1's unaligned sublane DMA crashed the worker; v2's
-    # unaligned h slice failed Mosaic compile — waves 10-15). Needs
-    # separable blend factors, f32 accumulator, 128-divisible folded
-    # width, and a TPU. DEFAULT ON since round 3c (v5 HW tests green in
-    # the -m tpu tier; 6M sliding 6.89 -> 5.36 s with kernel + fold
-    # exits, wave 21); opt out with ANATOMIX_SCATTER_KERNEL=0.
-    use_kernel = imp_factors is not None and scatter_kernel_eligible(
-        W, r2, out_channels, acc_dtype, interpret
-    )
-    if use_kernel:
-        from anatomix_tpu.ops.pallas.scatter import (
-            blend_scatter_fold, lane_tables,
-        )
-
-        g_axes, minv = imp_factors
-        gdh_np, gw_np = lane_tables(g_axes, out_channels)
-        gdh = jnp.asarray(gdh_np)
-        Mr = r2 * out_channels // 128
-        gw = jnp.asarray(gw_np).reshape(Mr, 128)
-        M = W * out_channels // 128
-        acc0 = jnp.zeros((D, H, M, 128), acc_dtype)
-        if vary_axis is not None:
-            acc0 = jax.lax.pcast(acc0, (vary_axis,), to="varying")
-
-        def chunk_body_kernel(acc, chunk):
-            chunk_starts, chunk_mask = chunk
-            windows = jax.vmap(slice_window)(chunk_starts)
-            # apply_fn may return the plain (B, r0, r1, r2, C) window or
-            # the pre-folded (B, r0, r1, r2*C/128, 128) form straight
-            # from the model's exit kernel (depth_to_space_fold) — the
-            # two are the same flat row, so the reshape is a no-op for
-            # pre-folded outputs and an XLA relayout otherwise
-            out = apply_fn(windows)
-            prod = out.reshape(out.shape[0], r0, r1, Mr, 128)
-            acc = blend_scatter_fold(
-                acc, prod, chunk_starts, chunk_mask.astype(jnp.int32),
-                gdh, gw, C=out_channels, minv=float(minv),
-                interpret=interpret,
-            )
-            return acc, None
-
-        acc, _ = jax.lax.scan(
-            chunk_body_kernel,
-            acc0,
-            (
-                starts.reshape(n_chunks, sw_batch_size, 3),
-                mask.reshape(n_chunks, sw_batch_size),
-            ),
-        )
-        return acc.reshape(D, H, W, out_channels)
 
     def chunk_body(acc, chunk):
         chunk_starts, chunk_mask = chunk
         windows = jax.vmap(slice_window)(chunk_starts)
         out = apply_fn(windows)  # (B, r, r, r, out_channels)
-        if out.shape[2:] != (r1, r2, out_channels):
-            # pre-folded exit on the non-kernel path: unfold (safety net
-            # for gate mismatches; extract uses scatter_kernel_eligible
-            # so this normally never triggers)
-            out = out.reshape(out.shape[0], r0, r1, r2, out_channels)
         impf = imp.astype(acc_dtype)
 
         def scatter_one(a, s_o_m):
@@ -342,7 +227,6 @@ def sliding_window_inference(
     mesh: Mesh | None = None,
     mesh_axis: str = "data",
     acc_dtype=jnp.float32,
-    interpret: bool = False,
 ) -> jax.Array:
     """Whole-volume inference by Gaussian-blended sliding windows.
 
@@ -351,19 +235,11 @@ def sliding_window_inference(
     Returns (1, D, H, W, out_channels).
 
     With `mesh`, windows are sharded over `mesh_axis` across devices and the
-    partial accumulators merged with one `psum` over ICI.
+    partial accumulators merged with one `psum`.
     """
     if volume.ndim != 5 or volume.shape[0] != 1:
         raise ValueError("volume must be (1, D, H, W, C)")
     roi_size = tuple(roi_size)
-
-    # single-channel volumes: when apply_fn opts in (`accepts_4d`), drop
-    # the channel dim BEFORE padding/slicing — a (…, W, 1) tensor is
-    # physically 128x lane-padded on TPU, so every per-window dynamic
-    # slice otherwise moves ~1 GB instead of 8 MB (128³ f32). apply_fn
-    # then receives (B, r0, r1, r2) windows.
-    if volume.shape[-1] == 1 and getattr(apply_fn, "accepts_4d", False):
-        volume = volume[..., 0]
 
     padded, crops = _pad_to_roi(volume, roi_size)
     spatial = padded.shape[1:4]
@@ -371,12 +247,8 @@ def sliding_window_inference(
     starts_np = compute_window_starts(spatial, roi_size, overlap)
     if mode == "gaussian":
         imp_np = gaussian_importance_map(roi_size, sigma_scale)
-        imp_factors = gaussian_importance_axes(roi_size, sigma_scale)
     elif mode == "constant":
         imp_np = constant_importance_map(roi_size)
-        imp_factors = (
-            [np.ones(r, np.float64) for r in roi_size], 0.0
-        )
     else:
         raise ValueError(f"Unsupported blend mode: {mode}")
 
@@ -412,8 +284,6 @@ def sliding_window_inference(
         out_channels=out_channels,
         sw_batch_size=sw_batch_size,
         acc_dtype=acc_dtype,
-        imp_factors=imp_factors,
-        interpret=interpret,
     )
 
     if mesh is None:

@@ -1,7 +1,7 @@
 """Parallelism: device meshes, data parallelism, spatial (halo) sharding.
 
-The reference has no distributed code (SURVEY.md §2.6); this module is the
-TPU-native design obligation: `NamedSharding` data parallelism for training
+The reference has no distributed code (SURVEY.md §2.6); this module adds
+`NamedSharding` data parallelism for training
 and window-sharded inference (see `ops/sliding_window.py` /
 `pretraining/train_step.py`), plus true spatial sharding of a single giant
 volume via `shard_map` + `ppermute` halo exchange — the volumetric analog of

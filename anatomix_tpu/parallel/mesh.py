@@ -1,9 +1,8 @@
 """Mesh construction helpers.
 
-Within a slice, axes ride ICI; across slices (multi-pod), put only the data
-axis on DCN (`jax.sharding` handles the device order; we keep the innermost
-mesh axis the fastest-varying one so spatial halo exchange uses ICI
-neighbors).
+The cards of one host are joined all to all (NVLink), so a mesh follows
+the algorithm alone: 'data' for batch or window parallelism, 'space' for a
+volume sharded along its leading axis.
 """
 
 from __future__ import annotations

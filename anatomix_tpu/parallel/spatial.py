@@ -1,12 +1,12 @@
-"""Spatial sharding of a single volume with halo exchange over ICI.
+"""Spatial sharding of a single volume with halo exchange between devices.
 
 The volumetric analog of context parallelism (SURVEY.md §5.7): the volume's
 leading spatial axis is sharded across the 'space' mesh axis, every conv
-exchanges a 1-voxel halo with its ICI neighbors via `ppermute` (reflect /
+exchanges a 1-voxel halo with its mesh neighbours via `ppermute` (reflect /
 replicate / zero semantics preserved at the global edges), pools and
 upsamples stay shard-local, and skip concats align by construction. The
-result is bitwise the unsharded network, at 1/n memory per chip — how a
-volume too large for one chip's HBM is processed without tiling artifacts.
+result is the unsharded network, at 1/n memory per device — how a volume
+too large for one card's memory is processed without tiling artifacts.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Supervised PatchNCE contrastive pretraining (TPU-native).
+"""Supervised PatchNCE contrastive pretraining.
 
 Rebuilds the reference's `pretraining/` stack (CUT-lineage SupCLModel,
 `/root/reference/pretraining/models/supcl_model.py`) as functional JAX:
 static-width projector MLPs (no data-dependent init dance), a pure jitted
-train step, data-parallel batches over an ICI mesh, Orbax checkpointing.
+train step, data-parallel batches over a device mesh, Orbax checkpointing.
 """
 
 from anatomix_tpu.pretraining.losses import sup_patch_nce_loss

@@ -149,10 +149,9 @@ def sample_patch_coords(
         # Gumbel top-k == uniform without replacement (equal scores), and
         # the by-score ordering of the selected set is itself a uniform
         # permutation — exactly `choice(replace=False)`'s distribution.
-        # `choice` materializes a full n-element permutation: two sorts
-        # worth 47 ms of the traced 394 ms train step at the 128-crop
-        # config (PERF.md round 3); top_k of 512 over 2M is 2x cheaper
-        # (tools/_exp_sample.py: 6.3 -> 3.0 ms isolated).
+        # `choice` materializes a full n-element permutation (two sorts
+        # over all 2M voxels at the 128-crop config); top_k of 512 is
+        # cheaper.
         _, flat = jax.lax.top_k(jax.random.gumbel(key, (n,), jnp.float32), p)
     else:
         g = jax.random.gumbel(key, (n,), jnp.float32)

@@ -9,10 +9,10 @@ per-tap SupPatchNCE losses (weights default to 1/num_taps, `supcl_model.py:
 388-399`), and take one AdamW step on both networks (`supcl_model.py:
 508-517,583-591`).
 
-TPU-native differences: bf16-friendly fp32-norm compute replaces
-AMP+GradScaler (no loss scaling needed on TPU), batch-norm running stats are
-threaded functionally, and data parallelism is expressed with
-`NamedSharding` on the batch — XLA inserts the grad all-reduce over ICI.
+Differences: bf16 compute with fp32 norms replaces AMP+GradScaler (bf16
+keeps fp32's exponent range, so no loss scaling), batch-norm running stats
+are threaded functionally, and data parallelism is expressed with
+`NamedSharding` on the batch — XLA inserts the grad all-reduce.
 """
 
 from __future__ import annotations
@@ -23,52 +23,27 @@ from typing import Any, Sequence
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from anatomix_tpu.models.unet import UnetPlan, init_params, unet_apply
 
 
 def _backbone_forward(plan, params_g, x, tap_layers, train, compute_dtype,
-                      bn_axis_name, eval_norm_layers=(), conv_impl="xla"):
+                      bn_axis_name, eval_norm_layers=()):
     """Dispatch UNet vs Primus backbones.
 
     Primus forces a single tap on the final feature map (logged as layer -1,
     `supcl_model.py:404-410`)."""
     if isinstance(plan, UnetPlan):
         if train:
-            import os as _os
-
-            if conv_impl in ("pallas_train", "pallas_train_block"):
-                from anatomix_tpu.models.unet_train_block import (
-                    train_block_eligible,
-                    unet_apply_train_block,
-                )
-
-                forced = conv_impl == "pallas_train_block"
-                if train_block_eligible(plan) and (
-                    forced
-                    or _os.environ.get("ANATOMIX_TRAIN_BLOCK", "1") != "0"
-                ):
-                    # whole-level block-space walk: kills the per-conv
-                    # s2d/d2s round trips + spatial pool/BN relayouts
-                    # (~55 ms of the 261 ms wave-35 step trace)
-                    _, taps, new_stats = unet_apply_train_block(
-                        plan, params_g, x, layers=tap_layers,
-                        compute_dtype=compute_dtype,
-                        bn_axis_name=bn_axis_name,
-                        eval_norm_layers=eval_norm_layers,
-                        interpret=jax.default_backend() == "cpu",
-                    )
-                    return taps, new_stats
             _, taps, new_stats = unet_apply(
                 plan, params_g, x, layers=tap_layers, train=True,
                 compute_dtype=compute_dtype, bn_axis_name=bn_axis_name,
-                eval_norm_layers=eval_norm_layers, conv_impl=conv_impl,
+                eval_norm_layers=eval_norm_layers,
             )
             return taps, new_stats
         _, taps = unet_apply(
             plan, params_g, x, layers=tap_layers,
-            compute_dtype=compute_dtype, conv_impl=conv_impl,
+            compute_dtype=compute_dtype,
         )
         return taps, {}
     # PrimusConfig: single-scale NCE on the decoded volume
@@ -95,7 +70,9 @@ from anatomix_tpu.pretraining.patch_sample import (
 )
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jax.Array
     params_g: Any
     params_f: Any
@@ -106,6 +83,9 @@ class TrainState(struct.PyTreeNode):
     # loss, `pretraining_networks.py:583-590` + `trainers/train.py:379-380`)
     # updates it from the train loop without retracing the step.
     lr_scale: jax.Array
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def _trainable_mask(params, frozen_layers=()):
@@ -268,7 +248,6 @@ def nce_forward(
     compute_dtype=None,
     bn_axis_name: str | None = None,
     eval_norm_layers: Sequence[int] = (),
-    conv_impl: str = "xla",
     fg_masks: jax.Array | None = None,  # (B, D, H, W) >0 = foreground
 ):
     """Compute the multi-tap SupPatchNCE loss.
@@ -287,7 +266,7 @@ def nce_forward(
 
     taps, new_g_stats = _backbone_forward(
         plan, params_g, x, tap_layers, train, compute_dtype, bn_axis_name,
-        eval_norm_layers=eval_norm_layers, conv_impl=conv_impl,
+        eval_norm_layers=eval_norm_layers,
     )
 
     if nce_weights is None:
@@ -388,23 +367,14 @@ def build_train_step(
     mesh=None,
     donate: bool = True,
     frozen_layers: Sequence[int] = (),
-    conv_impl: str = "auto",
     use_fg_mask: bool = False,
 ):
     """Build the jitted train step `(state, views, segs, rng) -> (state,
     metrics)`.
 
     With `mesh`, inputs are expected sharded over the 'data' axis and params
-    replicated; the grad all-reduce compiles onto ICI automatically.
+    replicated; XLA inserts the grad all-reduce across the mesh.
     """
-    if conv_impl == "auto":
-        # differentiable Pallas sparse convs on TPU (1.85x step speedup at
-        # the reference 128-cube config); XLA on CPU/interpret backends
-        conv_impl = (
-            "pallas_train"
-            if jax.default_backend() not in ("cpu",)
-            else "xla"
-        )
     nce = NCEOptions(
         temperature=nce_temperature,
         lambda_nce=lambda_nce,
@@ -435,7 +405,6 @@ def build_train_step(
                 nce_weights=nce_weights, train=True,
                 compute_dtype=compute_dtype,
                 eval_norm_layers=eval_norms,
-                conv_impl=conv_impl,
                 # label > 0 is the foreground mask (the reference's dataset
                 # ships a dedicated `mask` key, `h5supcl_dataset.py:339-343`;
                 # seg>0 is its value for the synthetic training data)

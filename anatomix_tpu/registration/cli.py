@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warp_seg", action="store_true")
     parser.add_argument("--path_seg_fixed", type=str, default=None)
     parser.add_argument("--path_seg_moving", type=str, default=None)
-    # TPU-native extra: feature extraction strategy
+    # extra over the reference: feature extraction strategy
     parser.add_argument(
         "--extract_strategy", type=str, default="sliding",
         choices=["sliding", "full", "auto"],

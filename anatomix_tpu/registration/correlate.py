@@ -14,7 +14,7 @@ registration/convex_adam_utils.py:409-552`) including:
   iteration j optimizes ssd + Σ_{j'<=j} coeff_{j'}·penalty_{j'} — faithfully
   reproduced here functionally.
 
-TPU-first: the reference's Python loop over z-shifts + per-row argmin loops
+Design: the reference's Python loop over z-shifts + per-row argmin loops
 become K³ statically-unrolled shifted SSDs and full-tensor argmins under one
 jit — no data-dependent control flow.
 """
@@ -55,25 +55,27 @@ def correlate(
     """
     K = 2 * disp_hw + 1
     _, H, W, D, C = feat_fix.shape
-    fix = feat_fix[0].astype(jnp.float32)
+    # Zero channels pad C to a multiple of 32 and add nothing to the SSD.
+    # With them the GPU sums channels with its reduction emitter; a shorter
+    # row is summed by an unrolled loop per output element.
+    cpad = -C % 32
+    fix = jnp.pad(feat_fix[0].astype(jnp.float32),
+                  ((0, 0), (0, 0), (0, 0), (0, cpad)))
     mov_pad = jnp.pad(
         feat_mov[0].astype(jnp.float32),
-        ((disp_hw,) * 2, (disp_hw,) * 2, (disp_hw,) * 2, (0, 0)),
+        ((disp_hw,) * 2, (disp_hw,) * 2, (disp_hw,) * 2, (0, cpad)),
     )
 
-    # TPU layout note: keep the K³ displacement axis LAST (lanes) during the
-    # elementwise/box-filter pipeline — a leading K³ axis leaves a size-1
-    # lane dimension and runs ~30× slower.
-    slices = []
-    for sd in range(K):
-        for sw in range(K):
-            for sh in range(K):
-                mov_s = jax.lax.slice(
-                    mov_pad, (sh, sw, sd, 0), (sh + H, sw + W, sd + D, C)
-                )
-                ssd_raw = jnp.sum((fix - mov_s) ** 2, axis=-1)  # (H',W',D')
-                slices.append(ssd_raw)
-    ssd_cl = jnp.stack(slices, axis=-1)  # (H', W', D', K³)
+    # One reduction over a stacked (K³, C) tail. K³ separate channel sums
+    # read the same two inputs, and XLA fuses them into one many-output GPU
+    # kernel whose compile takes minutes. The K³ displacement axis stays
+    # minor (contiguous) for the box filter and the argmin.
+    mov_s = jnp.stack([
+        jax.lax.slice(mov_pad, (sh, sw, sd, 0),
+                      (sh + H, sw + W, sd + D, C + cpad))
+        for sd in range(K) for sw in range(K) for sh in range(K)
+    ], axis=-2)  # (H', W', D', K³, C)
+    ssd_cl = jnp.sum((fix[..., None, :] - mov_s) ** 2, axis=-1)
 
     # double 3³ zero-padded box smoothing, channel-last over K³
     ssd_cl = box_filter(ssd_cl[None], kernel_size=3, num_repeats=2)[0]
@@ -101,7 +103,7 @@ def coupled_convex(
         return avg_pool3d(disp[None], 3, stride=1, padding=1)  # (1,...,3)
 
     disp_soft = soft_from_argmin(ssd_argmin)
-    # channel-last K³ for TPU-friendly elementwise/argmin (see correlate)
+    # channel-last K³ for the elementwise/argmin (see correlate)
     ssd_acc = jnp.moveaxis(ssd, 0, -1)  # (H', W', D', K³)
 
     for coeff in coeffs:

@@ -1,4 +1,4 @@
-"""MIND-SSC self-similarity descriptor (12 channels), TPU-native.
+"""MIND-SSC self-similarity descriptor (12 channels), on device.
 
 Semantics match the reference `MINDSSC` (`/root/reference/anatomix/
 registration/convex_adam_utils.py:311-406`), itself after Heinrich et al.

@@ -3,7 +3,7 @@ instance optimization.
 
 Semantics match `run_stage1_registration` / `run_instance_opt`
 (`/root/reference/anatomix/registration/instance_optimization.py:122-399`).
-TPU-first: the 80-iteration Adam loop is a `lax.scan` over a pure step
+Design: the 80-iteration Adam loop is a `lax.scan` over a pure step
 (optax Adam ≡ torch Adam bias-corrected update), compiled once; gradients
 flow through the box-filter smoothing and the trilinear grid_sample exactly
 as the reference's autograd does.
@@ -126,7 +126,7 @@ def run_instance_opt(
 
     tx = optax.adam(lr)
     # one-time corner packing: each Adam step then needs a single row-gather
-    # instead of 8 (TPU gathers cost per row; see make_packed_sampler)
+    # instead of 8 (see make_packed_sampler)
     sample_mov = make_packed_sampler(patch_mov, align_corners=False)
 
     def loss_fn(w):

@@ -86,25 +86,16 @@ def seg_forward(
     *,
     train: bool = False,
     compute_dtype=None,
-    conv_impl: str = "auto",
 ):
     """Backbone features -> class logits. With train=True returns
-    (logits, new_bn_stats). `conv_impl='auto'` uses the differentiable
-    Pallas sparse convs on TPU for the training path."""
-    if conv_impl == "auto":
-        conv_impl = (
-            "pallas_train"
-            if train and jax.default_backend() not in ("cpu",)
-            else "xla"
-        )
+    (logits, new_bn_stats)."""
     if train:
         feats, new_stats = unet_apply(
             plan, params["backbone"], x, train=True,
-            compute_dtype=compute_dtype, conv_impl=conv_impl,
+            compute_dtype=compute_dtype,
         )
         return apply_head(params["head"], feats), new_stats
     feats = unet_apply(
         plan, params["backbone"], x, compute_dtype=compute_dtype,
-        conv_impl=conv_impl,
     )
     return apply_head(params["head"], feats)

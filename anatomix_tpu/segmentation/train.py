@@ -6,7 +6,7 @@ sliding-window inference (crop³ windows, overlap 0.7, sw_batch 4),
 Adam(lr, wd=0) + cosine annealing stepped per epoch, best-val + periodic
 full-state checkpoints, TensorBoard/JSONL scalars.
 
-TPU-native: the whole train step (forward with train-mode batch norm,
+Design: the whole train step (forward with train-mode batch norm,
 DiceCE, grads, Adam update, BN stat merge) is one jitted program; data
 parallelism over a mesh arrives by sharding the batch.
 """

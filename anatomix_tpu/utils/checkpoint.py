@@ -72,8 +72,8 @@ def load_pytree(path: str) -> Any:
 
 
 def save_state_leaves(path: str, state: Any) -> None:
-    """Save an arbitrary pytree (incl. optax NamedTuple states / flax
-    PyTreeNodes) as its ordered leaves; restore with `load_state_leaves`
+    """Save an arbitrary pytree (incl. optax NamedTuple states and
+    registered dataclasses) as its ordered leaves; restore with `load_state_leaves`
     against a structurally-identical template."""
     leaves = jax.tree_util.tree_leaves(state)
     np.savez(path, **{f"leaf_{i}": np.asarray(l) for i, l in

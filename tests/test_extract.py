@@ -214,13 +214,11 @@ def test_full_tiled_vs_sliding():
     0.8 agrees at only ~0.8 mean cosine on this input — so the assertions
     are (a) per-tile stats track the sliding output strictly better than
     global stats do, and (b) a sanity floor. Real-scale quantification
-    (94M dev model, 256³) is carried by bench.py every round
-    (`dev_full_tiled_vs_sliding_cosine`); measured on TPU hardware
-    2026-08-19 (random-init weights): full_tiled 0.870 s vs sliding
-    20.908 s, mean voxelwise cosine 0.7987 — the two are different
-    feature *definitions* (per-tile vs per-128³-window instance-norm
-    statistics), so ~0.8 is the honest agreement level, not a bug
-    (PERF.md round 3c).
+    (94M dev model, 256³) is carried by bench.py
+    (`dev_full_tiled_vs_sliding_cosine`, random-init weights: about 0.8) —
+    the two are different feature *definitions* (per-tile vs per-128³-
+    window instance-norm statistics), so ~0.8 is the honest agreement
+    level, not a bug.
     """
     plan, params = _instance_model()
     rng = np.random.default_rng(11)
@@ -248,30 +246,6 @@ def test_full_tiled_vs_sliding():
         f"tiled {cos_tiled:.3f} should beat global {cos_global:.3f}"
     )
     assert cos_tiled > 0.45, f"mean cosine {cos_tiled:.3f}"
-
-
-def test_tiled_instance_norm_block_layout():
-    """The fused path's block-space tiled norm equals the plain-layout one
-    (block tiles correspond 1:1 to full-res tiles: s2d halves every dim)."""
-    from anatomix_tpu.models.unet_fused import _instance_norm_any
-    from anatomix_tpu.ops.norms import tiled_instance_norm
-    from anatomix_tpu.ops.pallas.conv3x3 import (
-        _depth_to_space,
-        _space_to_depth,
-    )
-
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.standard_normal((1, 8, 8, 8, 4)).astype(np.float32))
-    want = np.asarray(tiled_instance_norm(x, (2, 2, 1), eps=1e-3))
-    xb = _space_to_depth(x)
-    got = np.asarray(
-        _depth_to_space(
-            _instance_norm_any(
-                xb, True, eps=1e-3, tile_counts=(2, 2, 1)
-            )
-        )
-    )
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_auto_strategy_selection():

@@ -141,8 +141,8 @@ def test_pool2(rng, kind):
 
 @requires_torch
 def test_max_pool2x_grad_matches_torch_with_ties(rng):
-    """max_pool's backward (XLA select-and-scatter since the wave-27
-    revert of the slower argmax VJP) must use torch's tie rule (gradient
+    """max_pool's backward (XLA select-and-scatter) and the argmax VJP
+    `_max_pool2x` must use torch's tie rule (gradient
     to the FIRST max in (kd, kh, kw) window order). ReLU'd inputs make
     exact-zero ties common, so this pins the routing bit-exactly, not
     just on distinct values."""
@@ -281,39 +281,6 @@ def test_upsample2x(rng, mode):
     np.testing.assert_allclose(got, ref, atol=TOL, rtol=1e-4)
 
 
-@pytest.mark.parametrize("flat", ["0", "1"])
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_upsample2x_trilinear_block(rng, dtype, flat, monkeypatch):
-    """Block-layout trilinear x2 == _space_to_depth(spatial trilinear x2).
-
-    Tree form ("0"): f32 bit-exact (same multiply-add tree); flat form
-    ("1"): f32 within association-order rounding. bf16 within the extra
-    rounding of computing in bf16 vs the spatial path's f32 upcast.
-    """
-    from anatomix_tpu.ops.pallas.conv3x3 import _space_to_depth
-    from anatomix_tpu.ops.resize import (
-        upsample2x,
-        upsample2x_trilinear_block,
-    )
-
-    monkeypatch.setenv("ANATOMIX_TRILIN_FLAT", flat)
-    x = jnp.asarray(
-        rng.standard_normal((2, 6, 5, 7, 16), dtype=np.float32), dtype
-    )
-    ref = np.asarray(
-        _space_to_depth(upsample2x(x, "trilinear")), np.float32
-    )
-    got = np.asarray(upsample2x_trilinear_block(x), np.float32)
-    assert got.shape == ref.shape
-    if dtype == jnp.float32:
-        if flat == "0":
-            np.testing.assert_array_equal(got, ref)
-        else:
-            np.testing.assert_allclose(got, ref, atol=2e-6, rtol=2e-6)
-    else:
-        np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
-
-
 @requires_torch
 @pytest.mark.parametrize("align_corners", [False, True])
 def test_resize3d_arbitrary(rng, align_corners):
@@ -406,17 +373,15 @@ def test_even_chunk_sizes_block_invariant():
         e(3, 4)
 
 
-def test_batch_norm_train_custom_vjp_matches_autodiff(monkeypatch):
+def test_batch_norm_train_custom_vjp_matches_autodiff():
     """The hand analytic BN adjoint (_bn_train_norm) == XLA autodiff of
-    the same forward, including cotangents flowing through the returned
-    running-stat updates (f32; the default train path uses this VJP)."""
-    from anatomix_tpu.ops.norms import batch_norm_train
+    the same forward, including cotangents on the returned batch mean and
+    variance (f32; the train path uses this VJP)."""
+    from anatomix_tpu.ops.norms import _bn_train_impl, _bn_train_norm
 
     rng = np.random.default_rng(0)
     C = 6
     x = jnp.asarray(rng.standard_normal((2, 5, 4, 3, C)).astype(np.float32))
-    rm = jnp.asarray(rng.standard_normal(C).astype(np.float32))
-    rv = jnp.asarray(np.abs(rng.standard_normal(C)).astype(np.float32))
     scale = jnp.asarray(rng.standard_normal(C).astype(np.float32))
     bias = jnp.asarray(rng.standard_normal(C).astype(np.float32))
     cots = (
@@ -425,17 +390,14 @@ def test_batch_norm_train_custom_vjp_matches_autodiff(monkeypatch):
         jnp.asarray(rng.standard_normal(C).astype(np.float32)),
     )
 
-    def run():
-        def f(x, scale, bias):
-            return batch_norm_train(x, rm, rv, scale, bias)
-
-        out, vjp = jax.vjp(f, x, scale, bias)
+    def run(norm):
+        out, vjp = jax.vjp(norm, x, scale, bias)
         return out, vjp(cots)
 
-    monkeypatch.setenv("ANATOMIX_BN_VJP", "0")
-    out_ref, grads_ref = jax.jit(run)()
-    monkeypatch.setenv("ANATOMIX_BN_VJP", "1")
-    out_got, grads_got = jax.jit(run)()
+    out_ref, grads_ref = jax.jit(lambda: run(
+        lambda x, s, b: _bn_train_impl(x, s, b, 1e-5, None)[:3]))()
+    out_got, grads_got = jax.jit(lambda: run(
+        lambda x, s, b: _bn_train_norm(x, s, b, 1e-5, None)))()
 
     for a, b in zip(out_got, out_ref):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
@@ -474,24 +436,3 @@ def test_batch_norm_train_custom_vjp_bf16_close_to_f32():
     )
     denom = np.abs(g32).max() + 1e-8
     assert np.abs(gbf - g32).max() / denom < 5e-2
-
-
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_upsample2x_trilinear_block_pallas(rng, dtype, monkeypatch):
-    """Pallas one-pass form == the XLA flat-stencil block emit
-    (interpret mode; HW coverage in test_tpu_numerics)."""
-    from anatomix_tpu.ops.pallas.upsample import (
-        upsample2x_trilinear_block_pallas,
-    )
-    from anatomix_tpu.ops.resize import upsample2x_trilinear_block
-
-    monkeypatch.setenv("ANATOMIX_TRILIN_FLAT", "1")
-    x = jnp.asarray(
-        rng.standard_normal((1, 8, 8, 8, 32)).astype(np.float32), dtype
-    )
-    ref = np.asarray(upsample2x_trilinear_block(x), np.float32)
-    got = np.asarray(
-        upsample2x_trilinear_block_pallas(x, interpret=True), np.float32
-    )
-    tol = 2e-6 if dtype == jnp.float32 else 2e-2
-    np.testing.assert_allclose(got, ref, atol=tol, rtol=tol)

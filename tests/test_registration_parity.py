@@ -98,6 +98,45 @@ def test_correlate_parity(rng, ref_reg):
     np.testing.assert_array_equal(np.asarray(argmin), argmin_ref.numpy())
 
 
+def _correlate_oracle(fix, mov, hw):
+    """Direct numpy SSD over the (2·hw+1)³ shifts of the zero-padded moving
+    features, smoothed twice by a zero-padded 3³ box mean; fix and mov are
+    channel-last (H, W, D, C)."""
+    from scipy.ndimage import uniform_filter
+
+    K = 2 * hw + 1
+    H, W, D, _ = fix.shape
+    mp = np.pad(mov, ((hw, hw),) * 3 + ((0, 0),)).astype(np.float64)
+    ssd = np.stack([
+        ((fix - mp[sh:sh + H, sw:sw + W, sd:sd + D]) ** 2).sum(-1)
+        for sd in range(K) for sw in range(K) for sh in range(K)
+    ])
+    for _ in range(2):
+        ssd = uniform_filter(ssd, size=(1, 3, 3, 3), mode="constant")
+    return ssd
+
+
+@pytest.mark.parametrize("channels,hw,shape", [
+    (28, 1, (10, 9, 8)),  # the registration's merged feature width
+    (5, 2, (8, 8, 8)),
+    (33, 1, (7, 6, 9)),   # padded past one multiple of 32
+])
+def test_correlate_matches_numpy_oracle(rng, channels, hw, shape):
+    from anatomix_tpu.registration.correlate import correlate
+
+    fix = rng.standard_normal(shape + (channels,)).astype(np.float32)
+    mov = rng.standard_normal(shape + (channels,)).astype(np.float32)
+    ssd, argmin = correlate(fix[None], mov[None], hw)
+    ref = _correlate_oracle(fix, mov, hw)
+    np.testing.assert_allclose(np.asarray(ssd), ref, rtol=1e-5, atol=1e-4)
+    # argmin where the oracle's best shift is clearly ahead of the next
+    top2 = np.sort(ref, axis=0)[:2]
+    clear = top2[1] - top2[0] > 1e-3
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(np.asarray(argmin)[clear],
+                                  ref.argmin(0)[clear])
+
+
 @requires_reference
 def test_displacement_mesh_matches_affine_grid(ref_reg):
     import torch

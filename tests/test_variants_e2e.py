@@ -10,6 +10,7 @@ import pytest
 from anatomix_tpu.extract import make_feature_extractor
 from anatomix_tpu.models.unet import UnetConfig, build_plan, init_params
 from anatomix_tpu.models.vit3d import PrimusConfig, init_primus_params
+from tests.conftest import requires_reference
 
 
 def test_dev_unet_sliding_extraction(rng):
@@ -53,40 +54,9 @@ def test_vit_sliding_extraction(rng):
     assert np.isfinite(np.asarray(feats)).all()
 
 
-def test_vit_sliding_extraction_prepacked(rng):
-    """A tree already packed by `prepack_primus_tokenizer` (bench.py's
-    production inference config) must build the same extractor: the
-    string/int metadata leaves stay python-static and never ride as jit
-    arguments (BENCH r04 regression: `TypeError: Value 'none'`)."""
-    from anatomix_tpu.models.vit3d.primus import prepack_primus_tokenizer
-
-    cfg = PrimusConfig(
-        input_channels=1, num_classes=4, embed_dim=32, eva_depth=1,
-        eva_numheads=2, patch_embed_size=(8, 8, 8),
-        input_shape=(16, 16, 16), num_register_tokens=2,
-        qk_norm=True, out_norm="demean", version="v2",
-    )
-    params = init_primus_params(cfg, jax.random.PRNGKey(0))
-    packed = prepack_primus_tokenizer(
-        cfg, params, compute_dtype=jnp.float32
-    )
-    vol = jnp.asarray(
-        rng.standard_normal((1, 16, 16, 24, 1)).astype(np.float32)
-    )
-    ref = make_feature_extractor(
-        cfg, params, sw_batch_size=1, overlap=0.25
-    )(vol)
-    got = make_feature_extractor(
-        cfg, packed, sw_batch_size=1, overlap=0.25
-    )(vol)
-    assert got.shape == (1, 16, 16, 24, 4)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), atol=2e-5, rtol=1e-4
-    )
-
-
+@requires_reference
 def test_convert_cli_roundtrip(tmp_path):
-    torch = pytest.importorskip("torch")
+    import torch
     import sys
 
     if "/root/reference" not in sys.path:
